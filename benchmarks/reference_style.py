@@ -6,13 +6,12 @@ discrete SSY operator — broadcast the full 8-axis product tensor
 four next-state axes (reference ``code/ssy/discrete/ssy_wc_ratio.py:
 101-148``) — so that ``bench.py`` can report the speedup of the factored
 per-axis contraction chain over the formulation the reference uses, on the
-same hardware.  O(N^2) work/memory: usable only on small grids.
+same hardware.  O(N^2) work/memory: usable only on small grids (the
+reference's 10^4 grid holds H in 800 MB of float64).
 
 A log-space variant applies the identical broadcast-and-reduce to
-``exp(theta*ell - max)`` because the raw ``w^theta`` (~1e-47) flushes to
-zero in the TPU's float32-range f64 emulation — i.e. the reference
-formulation *cannot run at all* on this hardware without the log-space
-transformation; the variant here is the minimal change that lets it run.
+``exp(theta*ell - max)``, so it can be compared with the log-space
+operators; ``space="w"`` is the reference's own w^theta form.
 """
 
 from __future__ import annotations
@@ -43,17 +42,20 @@ def T_ssy_reference_style(model: SSY, disc: SSYDiscretization,
 
     H = A1 * A2 * A3 * Ql * Qc * Qi * Qz          # rank-8 broadcast product
 
+    # H is an argument of the jitted function, not a closure constant, so
+    # the compiled program does not embed its N^2 entries.
     if space == "w":
-        def T(w):
+        def T(w, H):
             hwt = jnp.sum(w.reshape((1,) * 4 + w.shape) ** theta * H,
                           axis=(4, 5, 6, 7))
             return 1.0 + beta * hwt ** (1.0 / theta)
     else:
-        def T(ell):
+        def T(ell, H):
             p = theta * ell
             mx = jnp.max(p)
             v = jnp.exp(p - mx).reshape((1,) * 4 + ell.shape)
             s = jnp.sum(v * H, axis=(4, 5, 6, 7))
             return jnp.log1p(beta * jnp.exp((mx + jnp.log(s)) / theta))
 
-    return jax.jit(T) if jit else T
+    T = jax.jit(T) if jit else T
+    return lambda x: T(x, H)

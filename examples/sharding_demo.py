@@ -1,8 +1,8 @@
 """Multi-device grid sharding demo (runs on a virtual CPU mesh anywhere).
 
 Set XLA_FLAGS=--xla_force_host_platform_device_count=8 (and run on CPU)
-to emulate an 8-chip mesh; on a real TPU pod slice it uses the actual
-devices.  Shows both multi-device paths: GSPMD-partitioned operators and
+to emulate an 8-device mesh; on a host with several GPUs it uses the
+actual cards.  Shows both multi-device paths: GSPMD-partitioned operators and
 the explicit shard_map program with hand-placed collectives.
 """
 

@@ -6,8 +6,7 @@ them, and vmaps the whole build-and-solve — one compile covers the
 sweep.  The reference solves calibrations one notebook run at a time
 (``/root/reference/code/ssy/continuous_junnan/ssy_test_continuous.md``);
 a gamma sweep like this one is the moment-matching workflow that makes
-the batched form worth sharding one-member-per-slice on a multi-slice
-mesh (``parallel/shard_ops`` ``batch_axis``).
+the batched form worth sharding one member per device.
 
 Run:  python examples/sweep_demo.py
 """

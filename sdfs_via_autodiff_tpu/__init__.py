@@ -1,11 +1,11 @@
-"""TPU-native recursive-utility asset-pricing solver library.
+"""Recursive-utility asset-pricing solver library.
 
 Computes wealth-consumption ratios and stochastic discount factors for
 long-run-risk models (SSY, GCY) by solving the Koopmans fixed point
 
     T(w) = 1 + beta * (H w^theta)^(1/theta)
 
-with autodiff-powered solvers, redesigned for TPU (JAX/XLA/Pallas/pjit).
+with autodiff-powered solvers in JAX, run on an NVIDIA GPU or the CPU.
 Capability parity target: jstac/sdfs_via_autodiff (see SURVEY.md).
 """
 

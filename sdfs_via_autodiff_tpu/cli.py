@@ -66,9 +66,8 @@ def cmd_solve(args):
     if getattr(args, "spec", "standard") == "degroot":
         from .drivers import degroot_fixed_point
         dropped = [flag for flag, off in (
-            ("--kernel", args.kernel == "xla"),
             ("--baseline", args.baseline is None),
-            ("--polish", args.polish is None),
+            ("--polish", not args.polish),
             ("--method", args.method == "quadrature"),
             ("--interp", args.interp == "pre"),
             ("--engine", args.engine == "auto")) if not off]
@@ -97,17 +96,15 @@ def cmd_solve(args):
     if args.kind == "discrete":
         sol = wc_ratio_discrete(
             model, shapes, algorithm=args.algorithm, tol=args.tol,
-            space=args.space, kernel=args.kernel, baseline=args.baseline,
-            discretization=args.discretization,
-            polish=args.polish or False,
+            space=args.space, baseline=args.baseline,
+            discretization=args.discretization, polish=args.polish,
             checkpoint_path=args.checkpoint)
     else:
         sol = wc_ratio_continuous(
             model, shapes, algorithm=args.algorithm, tol=args.tol,
             space=args.space, method=args.method, interp=args.interp,
             quad_degree=args.quad_degree, num_std_devs=args.num_std_devs,
-            kernel=args.kernel, baseline=args.baseline,
-            engine=args.engine, polish=args.polish or False,
+            baseline=args.baseline, engine=args.engine, polish=args.polish,
             checkpoint_path=args.checkpoint)
     wall = time.time() - t0
     out = dict(model=args.model, kind=args.kind, shapes=list(shapes),
@@ -274,7 +271,7 @@ def cmd_info(_args):
 def main(argv=None) -> int:
     p = argparse.ArgumentParser(
         prog="sdfs-tpu",
-        description="TPU-native wealth-consumption / SDF solver (SSY, GCY)")
+        description="wealth-consumption / SDF solver (SSY, GCY)")
     sub = p.add_subparsers(dest="cmd", required=True)
 
     ps = sub.add_parser("solve", help="solve for the W/C ratio fixed point")
@@ -284,8 +281,7 @@ def main(argv=None) -> int:
     ps.add_argument("--shapes", required=True,
                     help="comma-separated grid sizes, e.g. 10,10,10,10")
     ps.add_argument("--algorithm", default="newton",
-                    choices=["newton", "anderson", "successive_approx", "gd",
-                             "fused_anderson", "fused_sa"])
+                    choices=["newton", "anderson", "successive_approx", "gd"])
     ps.add_argument("--tol", type=float, default=1e-7)
     ps.add_argument("--space", choices=["w", "log"], default=None)
     ps.add_argument("--method", choices=["quadrature", "monte_carlo"],
@@ -294,21 +290,15 @@ def main(argv=None) -> int:
                     default="pre")
     ps.add_argument("--quad-degree", type=int, default=5)
     ps.add_argument("--num-std-devs", type=float, default=3.2)
-    ps.add_argument("--kernel", choices=["xla", "tiled"], default="xla",
-                    help="'tiled' = HBM-streaming Pallas kernels (f32 "
-                         "scale tier; TPU only)")
     ps.add_argument("--baseline", default=None,
                     choices=["loglinear", "coarse"],
                     help="baseline normalization (wide grids / f32)")
     ps.add_argument("--engine", choices=["auto", "node_chain", "gather"],
                     default="auto",
                     help="evaluation strategy for post/loglin interp")
-    ps.add_argument("--polish", nargs="?", const="host", default=None,
-                    choices=["host", "device"],
-                    help="refine the fast solve with float64 Newton: "
-                         "'host' (default when the flag is bare; true "
-                         "IEEE f64 on CPU) or 'device' (the "
-                         "accelerator's f64 emulation)")
+    ps.add_argument("--polish", action="store_true",
+                    help="refine the fast solve with float64 Newton on "
+                         "the default device")
     ps.add_argument("--discretization",
                     choices=["rouwenhorst", "tauchen"],
                     default="rouwenhorst",

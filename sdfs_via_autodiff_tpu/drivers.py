@@ -6,8 +6,8 @@ End-to-end parity with the reference drivers ``wc_ratio_continuous``
 ``gcy_wc_ratio.py:319-340``), with a structured result instead of prints,
 checkpointing via :mod:`.utils.checkpoint`, and a log-space default for the
 iterate: solving on ell = log w enforces w > 0 (Newton in w space can step
-to negative w, where w^theta is undefined), is required on TPU (w^theta
-underflows the f32 exponent range there), and reproduces the w-space fixed
+to negative w, where w^theta is undefined), keeps float32 solves inside the
+exponent range (w^theta underflows it), and reproduces the w-space fixed
 point to ~1e-12 relative.  Pass ``space="w"`` for strict reference
 semantics.
 """
@@ -63,31 +63,14 @@ def f32_tol_floor(theta: Optional[float]) -> float:
     the fixed-point factor 1/(1-rate) into the solution (docs/precision.md);
     the attainable residual floor additionally grows with |theta| because
     w = 1 + beta (H w^theta)^(1/theta) wraps every evaluation in a
-    theta-power round trip.  Measured anchors: SSY (theta ~ -16) iterates
-    reach ~4e-6 (NORTHSTAR residuals 1.7e-6 after convergence, stalls
-    below ~5e-6); GCY (theta ~ -36) stalled at tol 2.2e-5 and converges
-    at 3e-5 (examples/scale_demo.py, commit ea7db2a) — consistent with a
-    quadratic |theta| scaling from the two theta-scaled transcendental
-    round trips per application.
+    theta-power round trip.  Observed float32 solves: SSY (theta ~ -16)
+    stalls below ~5e-6; GCY (theta ~ -36) stalls at tol 2.2e-5 and
+    converges at 3e-5 — consistent with a quadratic |theta| scaling from
+    the two theta-scaled transcendental round trips per application.
     """
     if theta is None:
         return 5e-6
     return 5e-6 * max(1.0, (abs(float(theta)) / 16.0) ** 2)
-
-
-def _polish_stage(polish) -> str:
-    """Normalize the ``polish`` kwarg to a stage placement.
-
-    ``True``/``"host"`` -> f64 refine on the host CPU (true IEEE f64);
-    ``"device"`` -> f64 refine on the default backend (on TPU: the
-    float32-range double-float emulation, which the log-space operators
-    stay inside by construction)."""
-    if polish is True:
-        return "host"
-    if polish in ("host", "device"):
-        return polish
-    raise ValueError(f"polish must be True, 'host', or 'device', "
-                     f"got {polish!r}")
 
 
 def _newton_applicable(solver_opts: dict) -> dict:
@@ -98,16 +81,6 @@ def _newton_applicable(solver_opts: dict) -> dict:
     from .solvers.fixed_point import newton_solver
     allowed = set(inspect.signature(newton_solver).parameters) - {"T", "x0"}
     return {k: v for k, v in solver_opts.items() if k in allowed}
-
-
-def _default_algorithm(model, kernel: str) -> str:
-    """Per-path solver default (see ``wc_ratio_continuous`` docstring):
-    SA for the continuous-GCY pair tier — where the primal kernel is
-    ~3 ms/app at 18.9M points and SA's ~0.98/iter contraction makes a
-    device-resident SA loop the fastest route to the f32 floor —
-    Newton-Kantorovich everywhere else."""
-    return ("sa" if (kernel == "tiled" and not isinstance(model, SSY))
-            else "newton")
 
 
 def _run_solver(T, w0, space, algorithm, tol, solver_opts,
@@ -130,6 +103,12 @@ def _run_solver(T, w0, space, algorithm, tol, solver_opts,
     return WCSolution(w_star=w_star, grids=None, result=res, space=space)
 
 
+def _check_polish(polish) -> bool:
+    if not isinstance(polish, bool):
+        raise ValueError(f"polish must be True or False, got {polish!r}")
+    return polish
+
+
 def wc_ratio_discrete(model,
                       shapes: Sequence[int],
                       *,
@@ -138,10 +117,9 @@ def wc_ratio_discrete(model,
                       space: Optional[str] = None,
                       w_init=None,
                       dtype=None,
-                      kernel: str = "xla",
                       baseline: Optional[str] = None,
                       discretization: str = "rouwenhorst",
-                      polish=False,  # True | 'host' | 'device'
+                      polish: bool = False,
                       checkpoint_path: Optional[str] = None,
                       **solver_opts) -> WCSolution:
     """Solve the discretized (Rouwenhorst tensor-grid) model.
@@ -149,136 +127,37 @@ def wc_ratio_discrete(model,
     Parity: reference ``test_compute_wc_ratio_ssy`` / ``..._gcy``
     (``ssy_wc_ratio.py:216-240``, ``gcy_wc_ratio.py:319-340``).
 
-    ``polish=True`` (meaningful for the float32 tiled tier): after the
-    fast solve, refine with float64 Newton through the XLA operator
-    warm-started from it, run on the host CPU when the default backend
-    is an accelerator — the same two-stage recipe as the continuous
-    driver's polish (reference default tol 1e-7, ``solvers.py:16``, at
-    10^7-point grids despite the f32 fast tier's ~1e-5 floor).
-    ``polish="device"`` runs the f64 stage on the default accelerator
-    instead: on TPU that is the double-float "f64" emulation — array
-    exp/log/matmul at ~1e-15 but float32 *range*, which the log-space
-    operator stays inside by construction — trading the host stage's
-    minutes at 10^7 points for emulated-f64 device speed.
-    ``polish="host"`` is the explicit spelling of ``True``.
+    ``polish=True`` (meaningful for float32 solves): after the fast
+    solve, refine with float64 Newton warm-started from it, on the
+    default device — the same two-stage recipe as the continuous
+    driver's polish (reference default tol 1e-7, ``solvers.py:16``,
+    despite the float32 tier's ~1e-5 floor).
 
-    ``kernel="tiled"`` (float32, log space) runs the operator through the
-    strip-streamed Pallas kernels — the large-grid fast tier (no VMEM
-    size cap; see ``kernels/tiled_two_phase.py``).  SSY uses the native
-    4-D two-phase grouping; GCY folds its six axes into the same
-    structure by Kronecker grouping.  ``baseline="loglinear"`` is
-    supported for both: for GCY it conjugates the log-linear baseline
-    into the factors (rank-2 lazy batched column factors), extending
-    f32 coverage to moderately wide Rouwenhorst grids whose plain
-    operands warn/NaN.  The conjugated route has its own, later f32
-    envelope (shared-factor entries below f32's floor flush to zero;
-    the factory warns past factor log-range -150, docs/math.md §6b) —
-    beyond it use ``kernel="xla"`` with ``baseline="loglinear"`` (the
-    per-axis normalized chain) or ``discretization="tauchen"``.
+    ``baseline="loglinear"`` folds the log-linear closed form into the
+    operator (log space), extending float32 coverage to wide Rouwenhorst
+    grids.
 
     ``discretization="tauchen"`` swaps the Rouwenhorst construction for
     Tauchen's: its grid spans a fixed ±3 unconditional std at ANY point
     count, making fine f32 discrete grids range-safe (Rouwenhorst
     ladders widen like ±sqrt(n-1) sigma — keep h-axes at <=32 points
-    there; docs/status.md #1 and the NORTHSTAR discrete case).
+    there).
     """
     space = space or _auto_space()
-    if kernel not in ("xla", "tiled"):
-        raise ValueError(f"unknown kernel {kernel!r}")
-    if polish:
-        import contextlib
-
-        import jax
-
-        stage = _polish_stage(polish)
+    if _check_polish(polish):
         fast = wc_ratio_discrete(
             model, shapes, algorithm=algorithm, tol=max(tol, 1e-4),
-            space=space, w_init=w_init, dtype=dtype, kernel=kernel,
+            space=space, w_init=w_init, dtype=dtype,
             baseline=baseline, discretization=discretization,
             **solver_opts)
-        ctx = contextlib.nullcontext()
-        if stage == "host" and jax.default_backend() != "cpu":
-            ctx = jax.default_device(jax.devices("cpu")[0])
-        popts = _newton_applicable(solver_opts)
-        if (stage == "device" and kernel == "tiled"
-                and "tangent_T" not in popts):
-            # Mixed-precision iterative refinement (newton_solver's
-            # ``tangent_T``): the f64 stage's inner Krylov matvecs run
-            # through the f32 tiled kernel's tangent instead of the
-            # emulated-f64 chain — the residual and safeguard stay f64,
-            # so the refinement still converges to f64 accuracy, at
-            # fast-tier per-matvec cost.  The solve below iterates the
-            # log-w field (space="log"), which is exactly the tiled
-            # kernels' iterate, so shapes and semantics line up.
-            try:
-                if isinstance(model, SSY):
-                    from .kernels.tiled_two_phase import (
-                        make_tiled_T_log_ssy)
-                    dsc = discretize_ssy(model, tuple(shapes),
-                                         method=discretization)
-                    popts["tangent_T"] = make_tiled_T_log_ssy(
-                        model, dsc, baseline=baseline)
-                elif isinstance(model, GCY):
-                    from .kernels.tiled_two_phase import (
-                        make_tiled_T_log_gcy)
-                    dsc = discretize_gcy(model, tuple(shapes),
-                                         method=discretization)
-                    popts["tangent_T"] = make_tiled_T_log_gcy(
-                        model, dsc, baseline=baseline)
-            except Exception:
-                pass                  # fall back to the f64 tangent
-        with ctx:
-            # f64 Newton refine through the XLA operator (the tiled
-            # kernels are the f32 tier); baseline intentionally dropped
-            # — f64 needs no range fold (see the continuous twin).
-            return wc_ratio_discrete(
-                model, shapes, algorithm="newton", tol=tol, space="log",
-                discretization=discretization,
-                w_init=jnp.asarray(np.asarray(fast.w_star), jnp.float64),
-                checkpoint_path=checkpoint_path,
-                **popts)
-    if kernel == "tiled":
-        if space != "log":
-            raise ValueError("tiled kernels iterate in log space")
-        if isinstance(model, SSY):
-            from .kernels.tiled_two_phase import make_tiled_T_log_ssy
-            disc = discretize_ssy(model, tuple(shapes),
-                                  method=discretization)
-            T = make_tiled_T_log_ssy(model, disc, baseline=baseline)
-        elif isinstance(model, GCY):
-            from .kernels.tiled_two_phase import make_tiled_T_log_gcy
-            from .operators.discrete_gcy import gcy_loglinear_parts
-            disc = discretize_gcy(model, tuple(shapes),
-                                  method=discretization)
-            # baseline="loglinear" runs the normalized operand set
-            # (rank-2 lazy conjugated column factors) — the range-safe
-            # f32 recipe for wide-Rouwenhorst grids whose plain
-            # operands warn/NaN.
-            T = make_tiled_T_log_gcy(model, disc, baseline=baseline)
-            if w_init is None:
-                # Log-linear warm start (reference test_newton.md:60-66
-                # practice): beta = 0.9987 makes cold starts crawl.
-                # baseline="loglinear" already built the full-grid ell0
-                # inside the normalized operand factory — reuse it
-                # rather than recomputing the ~O(N)-sized f64 field.
-                ell0 = getattr(T, "baseline_log_w", None)
-                if ell0 is None:
-                    ell0 = gcy_loglinear_parts(model, disc)["ell0"]
-                w_init = jnp.exp(jnp.asarray(ell0, jnp.float32))
-        else:
-            raise TypeError(f"unsupported model {type(model).__name__}")
-        w0 = (jnp.full(tuple(shapes), DEFAULT_INIT_W, jnp.float32)
-              if w_init is None else jnp.asarray(w_init, jnp.float32))
-        sol = _run_solver(T, w0, space, algorithm, tol, solver_opts,
-                          theta=model.theta)
-        if checkpoint_path:
-            save_solution(checkpoint_path, model, (), sol.w_star,
-                          meta=dict(kind="discrete", shapes=list(shapes),
-                                    algorithm=algorithm, tol=tol,
-                                    space=space, kernel="tiled",
-                                    iterations=int(sol.result.iterations),
-                                    residual=float(sol.result.residual)))
-        return sol
+        # f64 Newton refine; baseline intentionally dropped — f64 needs
+        # no range fold (see the continuous twin).
+        return wc_ratio_discrete(
+            model, shapes, algorithm="newton", tol=tol, space="log",
+            discretization=discretization,
+            w_init=fast.w_star.astype(jnp.float64),
+            checkpoint_path=checkpoint_path,
+            **_newton_applicable(solver_opts))
     # The discretization is always built in float64: the grid ladders
     # define the discrete model, and f32-rounded ladders shift its fixed
     # point by up to ~1e-2 after the beta ~ 1 amplification (measured on
@@ -317,33 +196,20 @@ def wc_ratio_continuous(model,
                         quad_degree: int = 5,
                         mc_draw_size: int = 2000,
                         seed: int = 1234,
-                        algorithm: Optional[str] = None,
+                        algorithm: str = "newton",
                         tol: float = 1e-7,
                         space: Optional[str] = None,
                         w_init=None,
                         batch_size: Optional[int] = None,
                         baseline: Optional[str] = None,
                         dtype=None,
-                        kernel: str = "xla",
                         engine: str = "auto",
-                        polish=False,  # True | 'host' | 'device'
+                        polish: bool = False,
                         checkpoint_path: Optional[str] = None,
                         **solver_opts) -> WCSolution:
     """Solve the continuous-state model on interpolation grids.
 
-    ``kernel="tiled"`` (quadrature, log space, f32) runs the operator
-    through the Pallas kernels: SSY interp="pre" through the
-    strip-streamed two-phase kernels — the large-grid fast tier (see
-    NORTHSTAR.json: 0.5 s Newton steps at 11M points) — SSY
-    interp="post"/"loglin" through the fused Kronecker node-pair kernel
-    (``kernels/post_interp_kernel.py``), and GCY interp="pre" through
-    the streamed *pair* configuration (conditioned z/z_pi expectations
-    contracted per-slice in VMEM; needs n_z % 128 == 0 and
-    baseline normalization — see
-    ``kernels/tiled_two_phase.make_tiled_T_log_gcy_continuous``).
-    Combine with ``polish=True`` for full accuracy.
-
-    ``engine`` selects the XLA evaluation strategy for post/loglin
+    ``engine`` selects the evaluation strategy for post/loglin
     semantics: "auto" (node-chain matmuls in log space), or "gather"
     (the reference's pointwise corner-gather formulation).
 
@@ -353,14 +219,6 @@ def wc_ratio_continuous(model,
     ``quad_degree`` per dimension or ``mc_draw_size`` Monte Carlo draws,
     initial guess all-ones (reference :243-245) unless ``w_init`` given.
 
-    ``algorithm=None`` resolves per path: "sa" for the GCY pair tier
-    (measured on TPU at 18.9M points: the pair kernel costs ~3 ms per
-    application and SA contracts at ~0.98/iter, so a device-resident SA
-    loop solves in seconds, while Newton's inner matvecs through the
-    XLA pair twin under-resolve cond(I - T') at any bounded
-    inner_maxiter and Anderson's extrapolation can exit the coarse
-    baseline's f32 exp envelope); "newton" everywhere else.
-
     ``baseline="coarse"`` (the float32 production recipe, and required
     for GCY in f32 where theta*(log-w range) exceeds the f32 exponential
     range): solves a small float64 model first, fits an additive
@@ -368,140 +226,41 @@ def wc_ratio_continuous(model,
     and warm-starts from it.  ``baseline="loglinear"`` folds the closed
     form instead (adequate for SSY).
 
-    ``polish=True`` (meaningful for float32 / fused solves): after the
-    fast solve, refine with float64 Newton warm-started from it — the
-    f32 tier's speed with the f64 tier's accuracy.  The polish stage
-    runs on the host CPU when the default backend is an accelerator:
-    the TPU's "f64" is a float32-range double-float emulation
-    (docs/precision.md), while true-f64 CPU Newton from the
-    accurate-f32 warm start is ~4 iterations to ~5e-11 residual — at a
-    minutes-scale cost at 10^7 points (each inner Krylov matvec is a
-    full CPU operator application; NORTHSTAR records the honest
-    timing).  ``polish="device"`` runs the f64 stage on the default
-    accelerator via that emulation instead — the log-space operator
-    stays inside the emulation's float32 range by construction — and
-    ``polish="host"`` is the explicit spelling of ``True``.
+    ``polish=True`` (meaningful for float32 solves): after the fast
+    solve, refine with float64 Newton warm-started from it, on the
+    default device — the f32 tier's speed with the f64 tier's accuracy.
     """
     space = space or _auto_space()
     gdtype = dtype or jnp.float64
-    if algorithm is None:
-        algorithm = _default_algorithm(model, kernel)
-    if polish:
-        import contextlib
-
-        import jax
-
-        stage = _polish_stage(polish)
+    if _check_polish(polish):
         fast = wc_ratio_continuous(
             model, grid_sizes, num_std_devs=num_std_devs, method=method,
             interp=interp, quad_degree=quad_degree,
             mc_draw_size=mc_draw_size, seed=seed, algorithm=algorithm,
             tol=max(tol, 1e-4), space=space, w_init=w_init,
             batch_size=batch_size, baseline=baseline, dtype=dtype,
-            kernel=kernel, engine=engine, **solver_opts)
-        ctx = contextlib.nullcontext()
-        if stage == "host" and jax.default_backend() != "cpu":
-            ctx = jax.default_device(jax.devices("cpu")[0])
-        with ctx:
-            # The polish stage reruns the same configuration at float64
-            # with interp-engine settings and the Newton-applicable user
-            # solver options forwarded (the polish algorithm is always
-            # Newton, so e.g. Anderson-history options from an
-            # algorithm="anderson" fast stage are dropped); ``baseline``
-            # is intentionally dropped too (it exists to keep f32 in
-            # range — f64 doesn't need the fold, and skipping it keeps
-            # strict reference operator semantics for the final
-            # residual).
-            return wc_ratio_continuous(
-                model, grid_sizes, num_std_devs=num_std_devs, method=method,
-                interp=interp, quad_degree=quad_degree,
-                mc_draw_size=mc_draw_size, seed=seed, algorithm="newton",
-                tol=tol, space="log", batch_size=batch_size, engine=engine,
-                w_init=jnp.asarray(np.asarray(fast.w_star), jnp.float64),
-                checkpoint_path=checkpoint_path,
-                **_newton_applicable(solver_opts))
-    # Validate the kernel/method/interp combination BEFORE the coarse
-    # baseline's full f64 solve — a config typo must not cost minutes of
-    # solve work first.
-    if kernel not in ("tiled", "xla"):
-        raise ValueError(f"unknown kernel {kernel!r}")
-    if kernel == "tiled":
-        if method != "quadrature" or space != "log":
-            raise ValueError("tiled kernels implement the quadrature "
-                             "operators in log space")
-        if not isinstance(model, SSY) and interp != "pre":
-            raise ValueError(
-                "the continuous-GCY pair kernel covers interp='pre' "
-                "(factored quadrature); use kernel='xla' for the "
-                "post/loglin node-chain engines")
-        if interp in ("post", "loglin") and baseline is not None:
-            raise ValueError("the post-interp kernel has no baseline "
-                             "fold; use interp='pre' for normalized "
-                             "operators")
-        if interp not in ("pre", "post", "loglin"):
-            raise ValueError(f"unknown interp {interp!r}")
+            engine=engine, **solver_opts)
+        # The polish stage reruns the same configuration at float64 with
+        # interp-engine settings and the Newton-applicable user solver
+        # options forwarded (the polish algorithm is always Newton, so
+        # e.g. Anderson-history options from an algorithm="anderson" fast
+        # stage are dropped); ``baseline`` is intentionally dropped too
+        # (it exists to keep f32 in range — f64 doesn't need the fold, and
+        # skipping it keeps strict reference operator semantics for the
+        # final residual).
+        return wc_ratio_continuous(
+            model, grid_sizes, num_std_devs=num_std_devs, method=method,
+            interp=interp, quad_degree=quad_degree,
+            mc_draw_size=mc_draw_size, seed=seed, algorithm="newton",
+            tol=tol, space="log", batch_size=batch_size, engine=engine,
+            w_init=fast.w_star.astype(jnp.float64),
+            checkpoint_path=checkpoint_path,
+            **_newton_applicable(solver_opts))
     baseline_spec = baseline
     if baseline == "coarse":
         baseline_spec = _coarse_additive_baseline(
             model, grid_sizes, num_std_devs=num_std_devs,
             quad_degree=quad_degree, dtype=gdtype)
-    if kernel == "tiled":
-        if not isinstance(model, SSY):
-            # Continuous GCY: the streamed *pair* configuration — the
-            # conditioned z/z_pi expectations contract per-slice in
-            # VMEM (kernels/streamed_two_phase.build_c_call_pair).
-            # interp="pre" only (validated above); shape constraints
-            # (n_z % 128 etc.) are reported by the kernel builder.
-            from .kernels.tiled_two_phase import (
-                make_tiled_T_log_gcy_continuous)
-            grids = build_grid_gcy(model, *grid_sizes,
-                                   num_std_devs=num_std_devs)
-            T = make_tiled_T_log_gcy_continuous(
-                model, grids, degree=quad_degree, baseline=baseline_spec)
-        elif interp == "pre":
-            grids = build_grid_ssy(model, *grid_sizes,
-                                   num_std_devs=num_std_devs)
-            from .kernels.tiled_two_phase import (
-                make_tiled_T_log_ssy_continuous)
-            T = make_tiled_T_log_ssy_continuous(
-                model, grids, degree=quad_degree, baseline=baseline_spec)
-        elif interp in ("post", "loglin"):
-            grids = build_grid_ssy(model, *grid_sizes,
-                                   num_std_devs=num_std_devs)
-            from .kernels.post_interp_kernel import (
-                make_post_interp_kernel_T_ssy)
-            T = make_post_interp_kernel_T_ssy(
-                model, grids, quad_degree=quad_degree, interp=interp)
-        else:
-            raise ValueError(f"unknown interp {interp!r}")
-        shape = tuple(len(g) for g in grids)
-        if w_init is not None:
-            w0 = jnp.asarray(w_init, jnp.float32)
-        elif hasattr(T, "baseline_log_w"):
-            w0 = jnp.exp(T.baseline_log_w)
-        else:
-            w0 = jnp.ones(shape, jnp.float32)
-        sol = _run_solver(T, w0, space, algorithm, tol, solver_opts,
-                          theta=model.theta)
-        sol = dataclasses.replace(
-            sol, grids=tuple(jnp.asarray(g, jnp.float32) for g in grids))
-        if checkpoint_path:
-            save_solution(checkpoint_path, model, sol.grids, sol.w_star,
-                          meta=dict(kind="continuous", method=method,
-                                    interp=interp, quad_degree=quad_degree,
-                                    num_std_devs=num_std_devs,
-                                    algorithm=algorithm, tol=tol,
-                                    space=space, kernel="tiled",
-                                    iterations=int(sol.result.iterations),
-                                    residual=float(sol.result.residual)))
-        return sol
-    if algorithm in ("fused_anderson", "fused_sa"):
-        return _wc_ratio_continuous_fused(
-            model, grid_sizes, algorithm=algorithm, tol=tol,
-            num_std_devs=num_std_devs, method=method, interp=interp,
-            quad_degree=quad_degree, w_init=w_init,
-            baseline_spec=baseline_spec,
-            checkpoint_path=checkpoint_path, **solver_opts)
     if isinstance(model, SSY):
         grids = build_grid_ssy(model, *grid_sizes, num_std_devs=num_std_devs,
                                dtype=gdtype)
@@ -558,9 +317,8 @@ def wc_ratio_sweep(models: Sequence,
 
     The natural consumer of a calibration sweep (e.g. a gamma/psi grid
     for moment matching): one compile covers the whole sweep, and the
-    batched program is exactly what the multi-slice (DCN) layout shards
-    one-member-per-slice (``parallel/shard_ops`` ``batch_axis``; the
-    reference solves calibrations one notebook run at a time).
+    leading sweep axis is the natural one to shard one member per device
+    (the reference solves calibrations one notebook run at a time).
 
     Covers the factored quadrature interp="pre" chain (the one operator
     construction that is jnp-traceable end to end over model
@@ -799,89 +557,6 @@ def wc_ratio_continuation(model,
         sol = wc_ratio_continuous(
             model, sizes, algorithm=algorithm,
             tol=tol if last else coarse_tol, w_init=w_init, **kwargs)
-    return sol
-
-
-def _wc_ratio_continuous_fused(model, grid_sizes, *, algorithm, tol,
-                               num_std_devs, method, interp, quad_degree,
-                               w_init, checkpoint_path, baseline_spec=None,
-                               max_iter: int = 20_000,
-                               **solver_opts) -> WCSolution:
-    """Whole-solve Pallas kernel path (f32, SSY, quadrature + pre-interp).
-
-    algorithm="fused_anderson" runs the in-kernel Anderson solver;
-    "fused_sa" the in-kernel successive-approximation loop.  The entire
-    solve executes in one kernel launch with the iterate in VMEM.
-    """
-    import warnings
-
-    from .kernels.anderson_kernel import make_fused_anderson_ssy_continuous
-    from .kernels.solver_kernel import make_fused_solver_ssy_continuous
-    from .solvers.result import SolveResult
-
-    if tol < 2e-6:
-        warnings.warn(
-            f"tol={tol:g} is below the fused kernels' float32 iteration "
-            "floor (~1e-5..2e-6 on the log iterate with the accurate "
-            "transcendentals, depending on grid size); the solve will stop "
-            "at max_iter with the floor residual. Use the f64 XLA Newton "
-            "path for tighter tolerances.", stacklevel=3)
-
-    if method != "quadrature" or interp != "pre":
-        raise ValueError(
-            "fused kernels implement the quadrature + pre-interp operator")
-    if isinstance(model, SSY):
-        grids = build_grid_ssy(model, *grid_sizes, num_std_devs=num_std_devs,
-                               dtype=jnp.float32)
-        if algorithm == "fused_anderson":
-            fsolve = make_fused_anderson_ssy_continuous(
-                model, grids, degree=quad_degree, **solver_opts)
-        else:
-            fsolve = make_fused_solver_ssy_continuous(
-                model, grids, degree=quad_degree, **solver_opts)
-    elif isinstance(model, GCY):
-        # GCY continuous kernels are baseline-normalized by construction
-        # (theta * log-w range ~ 200 on these grids overflows raw f32).
-        from .kernels.anderson_kernel import make_fused_anderson_gcy_continuous
-        from .kernels.solver_kernel import make_fused_solver_gcy_continuous
-        grids = build_grid_gcy(model, *grid_sizes, num_std_devs=num_std_devs,
-                               dtype=jnp.float32)
-        # The GCY log-linear closed form is ~4.4 log units off at grid
-        # corners; theta-folding that into four composed factors overflows
-        # f32 (entries ~ e^{theta*4.4}).  Use the coarse additive baseline
-        # (baseline="coarse" in the public driver) for production runs.
-        gcy_baseline = (baseline_spec if baseline_spec is not None
-                        else "loglinear")
-        if algorithm == "fused_anderson":
-            fsolve = make_fused_anderson_gcy_continuous(
-                model, grids, degree=quad_degree, baseline=gcy_baseline,
-                **solver_opts)
-        else:
-            fsolve = make_fused_solver_gcy_continuous(
-                model, grids, degree=quad_degree, baseline=gcy_baseline,
-                **solver_opts)
-    else:
-        raise TypeError(f"unsupported model {type(model).__name__}")
-    shape = tuple(len(g) for g in grids)
-    if w_init is not None:
-        w0 = jnp.asarray(w_init, dtype=jnp.float32)
-    elif hasattr(fsolve, "baseline_log_w"):
-        w0 = jnp.exp(fsolve.baseline_log_w)
-    else:
-        w0 = jnp.ones(shape, dtype=jnp.float32)
-    ell, iters, err = fsolve(jnp.log(w0), tol, max_iter)
-    result = SolveResult(x=ell, iterations=iters, residual=err,
-                         converged=(err <= tol) & ~jnp.isnan(err))
-    sol = WCSolution(w_star=jnp.exp(ell), grids=tuple(grids), result=result,
-                     space="log")
-    if checkpoint_path:
-        save_solution(checkpoint_path, model, grids, sol.w_star,
-                      meta=dict(kind="continuous", method=method,
-                                interp=interp, quad_degree=quad_degree,
-                                num_std_devs=num_std_devs,
-                                algorithm=algorithm, tol=tol, space="log",
-                                iterations=int(iters),
-                                residual=float(err)))
     return sol
 
 

@@ -6,7 +6,7 @@ interpolation of w at each, and reduces (reference
 ``code/ssy/continuous_junnan/ssy_wc_ratio_continuous.py:90-153``).  That is
 a bandwidth-bound 2^d-corner gather per (state, node) pair.
 
-TPU-first alternative implemented here (``expectation_matrix``): when the
+The alternative implemented here (``expectation_matrix``): when the
 power is applied *before* interpolation (interpolating g = w^theta, the
 "pre" interpolation space), the interpolant is linear in the grid values,
 
@@ -20,7 +20,7 @@ factorizes into per-dimension *expectation matrices*
 
 so E_x[interp(g)(x')] is a chain of per-axis contractions of g against the
 P_d — identical in structure (and kernel cost) to the discrete operator,
-with matmuls on the MXU instead of gathers.  The factorization is *exact*
+with matmuls instead of gathers.  The factorization is *exact*
 for the tensor-product Gauss-Hermite rule: both paths are offered and
 cross-checked in the tests.
 """
@@ -177,7 +177,7 @@ def make_gather_T(next_state: Callable,
     interp: "post" (reference semantics — interpolate w, then power),
     "pre" (interpolate w^theta), "loglin" (interpolate log w).
     space: "w" iterates on w; "log" iterates on ell = log w with
-    shift-stabilized expectations (required on TPU).
+    shift-stabilized expectations (required in float32).
     """
     if interp not in ("post", "pre", "loglin"):
         raise ValueError(f"unknown interp {interp!r}")

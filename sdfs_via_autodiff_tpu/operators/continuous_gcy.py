@@ -24,6 +24,10 @@ from ..ops.grids import build_grid_gcy
 from ..ops.quadrature import gauss_hermite_normal, tensor_quadrature_normal
 from .continuous_common import expectation_matrix, make_gather_T
 
+# Keep float32 operands in float32 on the GPU (its default is TF32, which
+# keeps about three digits); a no-op for float64.
+_HI = jax.lax.Precision.HIGHEST
+
 __all__ = ["next_state_gcy", "T_gcy_continuous_factory", "build_grid_gcy"]
 
 
@@ -62,7 +66,7 @@ def _factored_arrays_gcy(model, grids, degree, baseline=None,
     """Expectation matrices + baseline components of the factored GCY
     operator (quadrature + interp="pre").
 
-    Shared by :func:`_factored_T` and the tiled Pallas kernel path
+    Shared by :func:`_factored_T` and the two-phase operand set
     (``operators/two_phase.two_phase_operands_gcy_continuous``).  Axis
     labels: l=h_lam, k=h_c, i=h_z, y=h_zpi, j=z, b=z_pi; capitals are
     next-period indices.  Returns P_lam (l), P_c (k), P_hz (i), P_hzpi
@@ -191,12 +195,14 @@ def _factored_T(model, grids, degree, space, dtype, baseline=None,
             ell0 = ell0.astype(dtype)
 
     def apply_K(g):
-        u = jnp.einsum("lL,LKIYJB->lKIYJB", P_lam, g)
-        u = jnp.einsum("kK,lKIYJB->lkIYJB", P_c, u)
-        u = jnp.einsum("iI,lkIYJB->lkiYJB", P_hz, u)
-        u = jnp.einsum("yY,lkiYJB->lkiyJB", P_hzpi, u)
-        u = jnp.einsum("ybB,lkiyJB->lkiyJb", P_zpi, u)   # next-z_pi first
-        u = jnp.einsum("ijbJ,lkiyJb->lkiyjb", P_z, u)    # then next-z
+        u = jnp.einsum("lL,LKIYJB->lKIYJB", P_lam, g, precision=_HI)
+        u = jnp.einsum("kK,lKIYJB->lkIYJB", P_c, u, precision=_HI)
+        u = jnp.einsum("iI,lkIYJB->lkiYJB", P_hz, u, precision=_HI)
+        u = jnp.einsum("yY,lkiYJB->lkiyJB", P_hzpi, u, precision=_HI)
+        # next-z_pi first
+        u = jnp.einsum("ybB,lkiyJB->lkiyJb", P_zpi, u, precision=_HI)
+        # then next-z
+        u = jnp.einsum("ijbJ,lkiyJb->lkiyjb", P_z, u, precision=_HI)
         return u
 
     expand = (None, slice(None), None, None, slice(None), None)  # (k, j)

@@ -12,13 +12,13 @@ Interpolation spaces (``interp``):
   semantics, ``ssy_wc_ratio_continuous.py:111,146``): gather path.
 * ``"pre"``   — interpolate g = w^theta: the tensor-product quadrature
   expectation then *factorizes* into per-axis contraction matrices (see
-  :mod:`.continuous_common`) — the fast TPU path, matmuls instead of
+  :mod:`.continuous_common`) — the fast path, matmuls instead of
   gathers.  Agrees with "post" in the fine-grid limit.
 * ``"loglin"``— interpolate log w, then exponentiate (the reference's
   log-interpolation experiment, ``test_newton.md:69-154``).
 
 ``space="log"`` (iterate on log w) is available for every variant and is
-required on TPU, where w^theta underflows the f32 exponent range.
+required in float32, where w^theta underflows the exponent range.
 """
 
 from __future__ import annotations
@@ -32,6 +32,10 @@ from ..models.ssy import SSY
 from ..ops.grids import build_grid_ssy
 from ..ops.quadrature import gauss_hermite_normal, tensor_quadrature_normal
 from .continuous_common import expectation_matrix, make_gather_T
+
+# Keep float32 operands in float32 on the GPU (its default is TF32, which
+# keeps about three digits); a no-op for float64.
+_HI = jax.lax.Precision.HIGHEST
 
 __all__ = ["next_state_ssy", "T_ssy_continuous_factory", "build_grid_ssy"]
 
@@ -67,7 +71,7 @@ def _factored_arrays_ssy(model, grids, degree, baseline=None,
                          tilt_lambda=True) -> dict:
     """Expectation matrices + baseline components of the factored operator.
 
-    Shared by :func:`_factored_T` and the tiled Pallas kernel path
+    Shared by :func:`_factored_T` and the two-phase operand set
     (``operators/two_phase.py``).  Returns P_lam (l), P_c (k), P_hz (i),
     P_z (i, j, j'), the split kappa terms log_A2 (k) / log_A3 (j) with
     log kappa(h_c, z) = log_A2[k] + log_A3[j], and — when a baseline is
@@ -162,10 +166,10 @@ def _factored_T(model, grids, degree, space, dtype, baseline=None,
             ell0 = ell0.astype(dtype)
 
     def apply_K(g):
-        u = jnp.einsum("lL,LKIJ->lKIJ", P_lam, g)
-        u = jnp.einsum("kK,lKIJ->lkIJ", P_c, u)
-        u = jnp.einsum("iI,lkIJ->lkiJ", P_hz, u)
-        u = jnp.einsum("ijJ,lkiJ->lkij", P_z, u)
+        u = jnp.einsum("lL,LKIJ->lKIJ", P_lam, g, precision=_HI)
+        u = jnp.einsum("kK,lKIJ->lkIJ", P_c, u, precision=_HI)
+        u = jnp.einsum("iI,lkIJ->lkiJ", P_hz, u, precision=_HI)
+        u = jnp.einsum("ijJ,lkiJ->lkij", P_z, u, precision=_HI)
         return u
 
     if space == "w":

@@ -44,6 +44,10 @@ import jax.numpy as jnp
 from ..models.gcy import GCY
 from ..models.ssy import SSY
 
+# Keep float32 operands in float32 on the GPU (its default is TF32, which
+# keeps about three digits); a no-op for float64.
+_HI = jax.lax.Precision.HIGHEST
+
 __all__ = ["T_degroot_factory", "T_degroot_continuous_factory",
            "existence_check_degroot"]
 
@@ -97,12 +101,12 @@ def _K_tilde(model, disc, transcendentals: str = "accurate", dtype=None):
                                           A2, A3, log_A2, log_A3))
 
         def apply_K(v):                        # v: (z, z_pi, h_z, h_c, h_zpi, h_lam)
-            u = jnp.einsum("lL,ABCDEL->ABCDEl", Ql, v)
-            u = jnp.einsum("dD,ABCDEl->ABCdEl", Qc, u)
-            u = jnp.einsum("cC,ABCdEl->ABcdEl", Qhz, u)
-            u = jnp.einsum("eE,ABcdEl->ABcdel", Qhzpi, u)
-            u = jnp.einsum("bB,ABcdel->Abcdel", zpiP, u)
-            u = jnp.einsum("aA,Abcdel->abcdel", zP, u)
+            u = jnp.einsum("lL,ABCDEL->ABCDEl", Ql, v, precision=_HI)
+            u = jnp.einsum("dD,ABCDEl->ABCdEl", Qc, u, precision=_HI)
+            u = jnp.einsum("cC,ABCdEl->ABcdEl", Qhz, u, precision=_HI)
+            u = jnp.einsum("eE,ABcdEl->ABcdel", Qhzpi, u, precision=_HI)
+            u = jnp.einsum("bB,ABcdel->Abcdel", zpiP, u, precision=_HI)
+            u = jnp.einsum("aA,Abcdel->abcdel", zP, u, precision=_HI)
             return (A2[None, None, None, :, None, None]
                     * A3[:, :, :, None, :, None] * u)
 
@@ -169,7 +173,7 @@ def T_degroot_factory(model, disc, *, h=None, space: str = "w",
 
     ``space="w"`` iterates on g directly (f64 parity tier);
     ``space="log"`` on ln g with the expectation chain contracted by
-    per-axis log-sum-exp shifts (the f32/TPU-safe tier, the same
+    per-axis log-sum-exp shifts (the f32-safe tier, the same
     per-axis LSE structure as the standard operators — exact for any
     dynamic range of ln g, which reaches ~e^100 scales at production
     calibrations; docs/math.md §9).
@@ -249,10 +253,10 @@ def _K_tilde_continuous(model, grids, degree,
         kappa = jnp.exp(log_A2[:, None] + log_A3[None, :])
 
         def apply_K(g):                        # g: (l, k, i, j)
-            u = jnp.einsum("lL,LKIJ->lKIJ", P_lam, g)
-            u = jnp.einsum("kK,lKIJ->lkIJ", P_c, u)
-            u = jnp.einsum("iI,lkIJ->lkiJ", P_hz, u)
-            u = jnp.einsum("ijJ,lkiJ->lkij", P_z, u)
+            u = jnp.einsum("lL,LKIJ->lKIJ", P_lam, g, precision=_HI)
+            u = jnp.einsum("kK,lKIJ->lkIJ", P_c, u, precision=_HI)
+            u = jnp.einsum("iI,lkIJ->lkiJ", P_hz, u, precision=_HI)
+            u = jnp.einsum("ijJ,lkiJ->lkij", P_z, u, precision=_HI)
             return kappa[None, :, None, :] * u
 
         def apply_K_log(a):                    # a = ln g
@@ -279,12 +283,12 @@ def _K_tilde_continuous(model, grids, degree,
         kappa = jnp.exp(log_A2[:, None] + log_A3[None, :])
 
         def apply_K(g):                        # g: (l, k, i, y, j, b)
-            u = jnp.einsum("lL,LKIYJB->lKIYJB", P_lam, g)
-            u = jnp.einsum("kK,lKIYJB->lkIYJB", P_c, u)
-            u = jnp.einsum("iI,lkIYJB->lkiYJB", P_hz, u)
-            u = jnp.einsum("yY,lkiYJB->lkiyJB", P_hzpi, u)
-            u = jnp.einsum("ybB,lkiyJB->lkiyJb", P_zpi, u)
-            u = jnp.einsum("ijbJ,lkiyJb->lkiyjb", P_z, u)
+            u = jnp.einsum("lL,LKIYJB->lKIYJB", P_lam, g, precision=_HI)
+            u = jnp.einsum("kK,lKIYJB->lkIYJB", P_c, u, precision=_HI)
+            u = jnp.einsum("iI,lkIYJB->lkiYJB", P_hz, u, precision=_HI)
+            u = jnp.einsum("yY,lkiYJB->lkiyJB", P_hzpi, u, precision=_HI)
+            u = jnp.einsum("ybB,lkiyJB->lkiyJb", P_zpi, u, precision=_HI)
+            u = jnp.einsum("ijbJ,lkiyJb->lkiyjb", P_z, u, precision=_HI)
             return kappa[None, :, None, None, :, None] * u
 
         def apply_K_log(a):
@@ -312,7 +316,7 @@ def T_degroot_continuous_factory(model, grids, *, h=None,
     per-dimension Gauss-Hermite expectation chain with the lambda tilt
     removed, then the de Groot outer map with discount field ``h``
     (None | scalar | array over the grid, values in (0, 1/beta)).
-    ``space="log"`` contracts by per-axis log-sum-exp (f32/TPU tier)."""
+    ``space="log"`` contracts by per-axis log-sum-exp (f32-safe tier)."""
     apply_K, apply_K_log, shapes = _K_tilde_continuous(
         model, grids, quad_degree, transcendentals, dtype)
     return _degroot_T(model, h, space, dtype, apply_K, apply_K_log,

@@ -32,6 +32,10 @@ from ..models.gcy import GCY
 from ..ops.rouwenhorst import rouwenhorst, rouwenhorst_P, rouwenhorst_ladder
 from ..ops.tauchen import tauchen, tauchen_P, tauchen_ladder
 
+# Keep float32 operands in float32 on the GPU (its default is TF32, which
+# keeps about three digits); a no-op for float64.
+_HI = jax.lax.Precision.HIGHEST
+
 __all__ = ["GCYDiscretization", "discretize_gcy", "T_gcy_factory",
            "dense_H_gcy", "gcy_loglinear_parts"]
 
@@ -182,12 +186,15 @@ def T_gcy_factory(model: GCY,
             for a in (B_lam, A2, A3, Qc, Qhz, Qhzpi, zpiP, zP))
 
     def apply_H(v):
-        u = jnp.einsum("lL,ABCDEL->ABCDEl", B_lam, v)   # next-h_lam
-        u = jnp.einsum("dD,ABCDEl->ABCdEl", Qc, u)      # next-h_c
-        u = jnp.einsum("cC,ABCdEl->ABcdEl", Qhz, u)     # next-h_z
-        u = jnp.einsum("eE,ABcdEl->ABcdel", Qhzpi, u)   # next-h_zpi
-        u = jnp.einsum("bB,ABcdel->Abcdel", zpiP, u)    # next-z_pi
-        u = jnp.einsum("aA,Abcdel->abcdel", zP, u)      # next-z
+        # next-h_lam
+        u = jnp.einsum("lL,ABCDEL->ABCDEl", B_lam, v, precision=_HI)
+        u = jnp.einsum("dD,ABCDEl->ABCdEl", Qc, u, precision=_HI)  # next-h_c
+        u = jnp.einsum("cC,ABCdEl->ABcdEl", Qhz, u, precision=_HI)  # next-h_z
+        # next-h_zpi
+        u = jnp.einsum("eE,ABcdEl->ABcdel", Qhzpi, u, precision=_HI)
+        # next-z_pi
+        u = jnp.einsum("bB,ABcdel->Abcdel", zpiP, u, precision=_HI)
+        u = jnp.einsum("aA,Abcdel->abcdel", zP, u, precision=_HI)      # next-z
         return u
 
     if space == "w":
@@ -293,7 +300,7 @@ def _T_gcy_normalized(model: GCY, disc: GCYDiscretization, *, dtype=None,
     # the 25.2M north-star grid) — enable lse_matmul's deeper matmul
     # windows.  Three passes: the measured stage depths reach 183 nats
     # at the north-star widths (> the 167-nat two-pass union; CPU f32
-    # masks this via subnormals, TPU flushes them).
+    # masks this via subnormals, a device that flushes them does not).
     lse = partial(lse_matmul, transcendentals=transcendentals,
                   deep_window=80.0 if work_dtype == jnp.float32 else 0.0,
                   deep_passes=3)

@@ -5,9 +5,8 @@ The reference implements ``T_ssy`` by broadcasting an 8-axis product tensor
 (reference ``code/ssy/discrete/ssy_wc_ratio.py:82-151``) — O(N^2) work and
 memory in the number of grid points N.  Because the transition kernel is a
 product of per-axis factors, ``H w^theta`` is here computed as a *chain of
-per-axis contractions* (skinny matmuls on the MXU): O(N * sum(n_axis)) FLOPs
-and O(N) memory.  This is the central TPU-first redesign; it is exact (same
-sum, reordered) and is validated against a loop oracle and a dense-H path in
+per-axis contractions* (skinny matmuls): O(N * sum(n_axis)) FLOPs and O(N)
+memory.  This is the central redesign; it is exact (same sum, reordered) and is validated against a loop oracle and a dense-H path in
 the tests.
 
 Two operator spaces are provided:
@@ -16,7 +15,7 @@ Two operator spaces are provided:
   float64 because w^theta ~ 1e-47 underflows float32 at theta ~ -16).
 * ``space="log"``: iterate on l = log(w); the contraction runs on
   ``exp(theta*l - m)`` with a max-shift m, which keeps every intermediate in
-  comfortable float32 range — the fast TPU path.
+  comfortable float32 range.
 """
 
 from __future__ import annotations
@@ -31,6 +30,10 @@ import numpy as np
 from ..models.ssy import SSY
 from ..ops.rouwenhorst import rouwenhorst, rouwenhorst_P, rouwenhorst_ladder
 from ..ops.tauchen import tauchen, tauchen_P, tauchen_ladder
+
+# Keep float32 operands in float32 on the GPU (its default is TF32, which
+# keeps about three digits); a no-op for float64.
+_HI = jax.lax.Precision.HIGHEST
 
 __all__ = ["SSYDiscretization", "discretize_ssy", "T_ssy_factory",
            "dense_H_ssy"]
@@ -138,13 +141,13 @@ def _ssy_factors(model: SSY, disc: SSYDiscretization):
 def _hw_theta_factored(v, B_lam, Qc, Qhz, zP, A2, A3):
     """Chain of per-axis contractions: (H v)[l,k,i,j] for v = w^theta.
 
-    Each step is a dot_general the XLA TPU backend tiles onto the MXU;
-    intermediates stay O(N).
+    Each step is one dot_general; intermediates stay O(N).
     """
-    u = jnp.einsum("lm,mkij->lkij", B_lam, v)     # contract next-h_lam
-    u = jnp.einsum("km,lmij->lkij", Qc, u)        # contract next-h_c
-    u = jnp.einsum("im,lkmj->lkij", Qhz, u)       # contract next-h_z
-    u = jnp.einsum("jm,lkim->lkij", zP, u)        # contract next-z
+    # contract next-h_lam
+    u = jnp.einsum("lm,mkij->lkij", B_lam, v, precision=_HI)
+    u = jnp.einsum("km,lmij->lkij", Qc, u, precision=_HI)  # contract next-h_c
+    u = jnp.einsum("im,lkmj->lkij", Qhz, u, precision=_HI)  # contract next-h_z
+    u = jnp.einsum("jm,lkim->lkij", zP, u, precision=_HI)  # contract next-z
     return A2[None, :, None, None] * A3[None, None, :, :] * u
 
 
@@ -169,8 +172,7 @@ def T_ssy_factory(model: SSY,
     closed-form approximation ell0 into the transition factors so the
     contraction runs on the residual theta*(ell - ell0) — required on wide
     grids where a single state axis carries more log-range than exp can
-    represent (theta*Delta(ell) beyond ~87 in f32 / on TPU, whose "f64"
-    emulation shares the f32 exponent range).  Exact algebra, better
+    represent (theta*Delta(ell) beyond ~87 in f32).  Exact algebra, better
     conditioning; iterate should start near the baseline (the returned T
     exposes ``T.baseline_log_w``).
     """
@@ -238,7 +240,7 @@ def _ssy_normalized_arrays(model: SSY, disc: SSYDiscretization) -> dict:
     """Host-float64 assembly of the baseline-normalized operator factors.
 
     Shared by the XLA normalized operator (:func:`_T_ssy_normalized`) and
-    the tiled Pallas kernel path (``operators/two_phase.py``).  Returns a
+    the two-phase operand set (``operators/two_phase.py``).  Returns a
     dict of numpy arrays: folded transition factors M1 (l), M2 (k),
     M3 (j', i, i'), M4 (i, j, j'), the kappa terms log_A2 (k) and
     log_A3 (i, j), and the separable baseline components

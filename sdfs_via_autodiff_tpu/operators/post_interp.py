@@ -8,9 +8,9 @@ The power between interpolation and expectation blocks the per-axis
 *expectation-matrix* factorization used by the "pre" path
 (:mod:`.continuous_common`), so the reference — and round 1 of this
 framework — evaluates these semantics pointwise: a 2^d-corner gather of w
-per (state, node) pair, the classic TPU-hostile memory pattern.
+per (state, node) pair, a bandwidth-bound memory pattern.
 
-TPU-first reformulation implemented here: multilinear interpolation at a
+Reformulation implemented here: multilinear interpolation at a
 *fixed* shock node eta_q is a linear map of the field, and because each
 state dimension's successor is driven by its own component of eta_q, that
 map factorizes per axis,
@@ -21,21 +21,19 @@ with B_d[q][i, k] = b_k(mu_d(x_i) + sigma_d(x) * eta_q[d]) the hat-basis
 matrix of axis d at node q (the z-axis matrix carries the h_z conditioning
 of sigma_z, exactly like the discrete operator's z factor).  One operator
 application is then a *loop over nodes of per-axis matmul chains* with a
-running log-sum-exp accumulation across nodes — MXU contractions instead
-of gathers, identical per-node structure to the factored discrete
+running log-sum-exp accumulation across nodes — matmul contractions
+instead of gathers, identical per-node structure to the factored discrete
 operator.  The formulation is exact (same corner weights as the gather,
-reordered), works for tensor-product quadrature *and* joint Monte Carlo
-draws (each draw is a node), and admits a two-matmul Pallas kernel via
-Kronecker grouping (:mod:`..kernels.post_interp_kernel`).
+reordered), and works for tensor-product quadrature *and* joint Monte
+Carlo draws (each draw is a node).
 
 Per-node-chunk layout (the round-4 MC speedup): each scan step runs the
 per-axis contractions as explicit ``lax.dot_general`` batched matmuls
 with the node chunk (and any conditioning axes) as LEADING batch dims and
 the contracted axis adjacent — einsum's planner turned the conditioned
 contractions (``"sijbJ,slkiyJb->slkiyjb"``) into transpose-heavy
-broadcast-reduce programs on TPU, which made the 2000-draw GCY Monte
-Carlo operator ~300x slower than its FLOP count (round-3
-``gcy_continuous_mc_nodechain`` entry).  One explicit (c, N)-intermediate
+broadcast-reduce programs, which made the 2000-draw GCY Monte Carlo
+operator far slower than its FLOP count.  One explicit (c, N)-intermediate
 permute per step replaces the planner's materializations.
 """
 

@@ -12,12 +12,11 @@ columns (h_z, z) of a matrix view splits the chain into
 with the epilogue's additive terms separable into a row part and a column
 part.  This module holds the grouping (:class:`TwoPhaseOperands`), builders
 that assemble it for each operator instance, and a plain-XLA evaluator
-(:func:`make_xla_two_phase_T`).  The point of the grouping is the *tiled
-Pallas kernel* in ``kernels/tiled_discrete.py``: each phase needs only a
-strip of the field (all columns of a few rows, or all rows of a few
-columns), so the whole operator runs in two HBM-minimal passes — one read
-and one write of the field per phase — instead of the ~10 passes of the
-unfused per-axis einsum chain.
+(:func:`make_xla_two_phase_T`).  The point of the grouping: each phase
+needs only a strip of the field (all columns of a few rows, or all rows of
+a few columns), so a fused kernel could run the whole operator in two
+memory-minimal passes — one read and one write of the field per phase —
+instead of the ~10 passes of the unfused per-axis einsum chain.
 
 Reference semantics covered: discrete ``T_ssy`` (``/root/reference/code/
 ssy/discrete/ssy_wc_ratio.py:82-151``) and the quadrature continuous
@@ -37,8 +36,7 @@ import numpy as np
 
 __all__ = ["TwoPhaseOperands", "two_phase_operands_ssy",
            "two_phase_operands_ssy_continuous", "two_phase_operands_gcy",
-           "two_phase_operands_gcy_continuous",
-           "conjugate_to_shared", "make_xla_two_phase_T"]
+           "two_phase_operands_gcy_continuous", "make_xla_two_phase_T"]
 
 
 @dataclasses.dataclass(frozen=True)
@@ -58,8 +56,8 @@ class TwoPhaseOperands:
     ``W_c1`` is (n_c1, n_c1), or (n_c2, n_c1, n_c1) batched over the *next*
     c2 index (it applies before c2 is contracted); ``W_c2`` is
     (n_c2, n_c2), or (n_c1, n_c2, n_c2) batched over the *current* c1
-    index.  All arrays are host float64 (full exponent range); the kernel
-    builders cast.
+    index.  All arrays are host float64 (full exponent range); the
+    evaluator casts.
     """
 
     shapes: Tuple[int, int, int, int]
@@ -74,9 +72,6 @@ class TwoPhaseOperands:
     sub_row: Optional[np.ndarray] = None   # (n_r1, n_r2), theta*ell0 row part
     sub_col: Optional[np.ndarray] = None   # (n_c1, n_c2), theta*ell0 col part
     baseline_log_w: Optional[np.ndarray] = None  # full 4-D ell0
-    mid_col: Optional[np.ndarray] = None   # (n_c1, n_c2), added between the
-    #   two column contractions (conjugated-shared form, see
-    #   :func:`conjugate_to_shared`)
 
     @property
     def c1_batched(self) -> bool:
@@ -89,10 +84,6 @@ class TwoPhaseOperands:
     @property
     def has_sub(self) -> bool:
         return self.sub_row is not None
-
-    @property
-    def has_mid(self) -> bool:
-        return self.mid_col is not None
 
 
 def _kron(X, Y):
@@ -121,7 +112,7 @@ def _warn_ssy_f32_envelope(model, disc) -> None:
         warnings.warn(
             f"theta * (within-column-group log-w span) ~ "
             f"{abs(model.theta) * span:.0f} exceeds float32's exp range "
-            "(~85): the f32 tiled SSY operator will produce -inf/NaN on "
+            "(~85): the f32 two-phase SSY operator will produce -inf/NaN on "
             "this grid (its joint column-group shifts cannot window per "
             "row). Use the XLA normalized tier — T_ssy_factory(space="
             "'log', baseline='loglinear', dtype=float32), whose "
@@ -185,7 +176,7 @@ def two_phase_operands_ssy(model, disc, baseline: Optional[str] = None
         warnings.warn(
             f"normalized-operator folded factors reach e^{fac_max:.0f}, "
             "leaving too little float32 exp-range headroom for the "
-            "iterate's residual: the f32 tiled SSY operator is likely to "
+            "iterate's residual: the f32 two-phase SSY operator is likely to "
             "produce inf/NaN on this grid. Shrink the z / h_z axes "
             "(Rouwenhorst ladders span ±sqrt(n-1) sigma), use "
             "discretization='tauchen' (fixed ±3 sigma span at any point "
@@ -203,30 +194,6 @@ def two_phase_operands_ssy(model, disc, baseline: Optional[str] = None
         add_col=sub_col + arrs["log_A3"],
         theta=theta, beta=beta,
         sub_row=sub_row, sub_col=sub_col, baseline_log_w=ell0)
-    # Lazy form of the batched column factors: the discrete z-grid is
-    # multiplicatively separable (z_states = sigma_z[i] * ladder[j]), so
-    # psi_ij = A_z sigma_i lambda_j and both folded factors are shared
-    # matrices with a scalar-scaled exponent correction,
-    #     W[b] = exp(logW0 + sum_k t_k[b] * D_k)      (rank 1 here).
-    # The tiled kernel materializes slices from these (K, n, n)+(K, B)
-    # arrays on the fly instead of holding the (B, n, n) tensor in VMEM —
-    # the unlock for wide-z normalized grids (e.g. 384 z-points, where
-    # the dense batched factor alone is ~19 MB).
-    with np.errstate(divide="ignore"):
-        log_Qhz = np.log(np.asarray(disc.h_z_Q, np.float64))
-        log_zP = np.log(np.asarray(disc.z_P, np.float64))
-    sigma = np.asarray(disc.sigma_z_states, np.float64)
-    lam = np.asarray(disc.z_states, np.float64)[0] / sigma[0]
-    phi_i = arrs["phi_i"]
-    Az_theta = theta * arrs["A_z"]
-    object.__setattr__(ops, "lazy_c1", (
-        log_Qhz + theta * (phi_i[None, :] - phi_i[:, None]),
-        (Az_theta * (sigma[None, :] - sigma[:, None]))[None],
-        lam[None]))
-    object.__setattr__(ops, "lazy_c2", (
-        log_zP,
-        (Az_theta * (lam[None, :] - lam[:, None]))[None],
-        sigma[None]))
     return ops
 
 
@@ -284,7 +251,7 @@ def two_phase_operands_gcy_continuous(model, grids, degree: int = 5,
     expectation matrices are *truly conditioned* — P_zpi on the current
     h_zpi (y) and P_z on the current h_z (i) AND current z_pi (b): the
     conditioning changes the quadrature-interpolation geometry, so no
-    shared/lazy conjugation exists.  The joint c2 factor batched over
+    shared-factor conjugation exists.  The joint c2 factor batched over
     the current c1 slice,
 
         W_c2[(i, y)][(b, j), (B, J)] = P_zpi[y, b, B] * P_z[i, j, b, J],
@@ -293,9 +260,8 @@ def two_phase_operands_gcy_continuous(model, grids, degree: int = 5,
     the joint product because P_z's z_pi conditioning is on the CURRENT
     b — a row index of the joint matrix).  It is never materialized:
     ``ops.pair_c2 = (P_z, P_zpi)`` (+ ``ops.pair_shapes``) carries the
-    per-axis factors, which the streamed kernel's *pair* configuration
-    (``kernels/streamed_two_phase.py``) contracts per-slice in VMEM and
-    the XLA twin contracts as the factored per-axis chain.  ``W_c2``
+    per-axis factors, which the plain evaluator contracts as the factored
+    per-axis chain.  ``W_c2``
     itself is a broadcast placeholder (shape/ndim carrier only).
 
     ``baseline`` is "loglinear" or an ``(const, profiles)`` pair from
@@ -316,7 +282,7 @@ def two_phase_operands_gcy_continuous(model, grids, degree: int = 5,
     # per-column add below.  The raw rows carry folded payoff factors
     # that sum to ~e^38 on reference calibrations, which (a) wastes
     # most of the linear chain's f32 window on a constant scale and
-    # (b) made the pass-C exponent bias overflow (kernel NaNs).  A
+    # (b) made a single-shift exponent bias overflow (NaNs).  A
     # per-(y, b) scale rides the b lane through the row carries — the
     # carries contract rows, never columns — so the move is exact.
     zpi_scale = P_zpi.sum(axis=2)                    # (y, b)
@@ -365,8 +331,8 @@ def two_phase_operands_gcy_continuous(model, grids, degree: int = 5,
     return ops
 
 
-def two_phase_operands_gcy(model, disc, baseline: Optional[str] = None,
-                           dense: bool = True) -> TwoPhaseOperands:
+def two_phase_operands_gcy(model, disc, baseline: Optional[str] = None
+                           ) -> TwoPhaseOperands:
     """Two-phase operands for the *discrete six-state GCY* operator via
     Kronecker grouping.
 
@@ -383,12 +349,10 @@ def two_phase_operands_gcy(model, disc, baseline: Optional[str] = None,
     and the epilogue splits row/column with this grouping: log_A3
     depends on (z, z_pi, h_z, h_zpi) — a general (c1, c2) matrix — and
     log_A2 on h_c only.  The Kronecker products trade ~7x more
-    multiplies for large MXU-friendly shapes ((n_z n_zpi)^2 instead of
-    skinny per-axis factors); the HBM traffic (the bound at scale) is
+    multiplies for large matmul shapes ((n_z n_zpi)^2 instead of
+    skinny per-axis factors); the memory traffic (the bound at scale) is
     the same two passes per phase.  Putting the Kronecker groups on the
-    *column* side keeps the minor block dimension large (n_hz*n_hzpi
-    lanes) — the small (h_c, h_lam) group as lanes would pad 16 -> 128
-    and waste ~8x of every column-phase block.
+    *column* side keeps the minor dimension large (n_hz*n_hzpi).
 
     The field view is ``ell[d, l, a, b, c, e]`` (h_c, h_lam leading);
     ``ops.perm`` / ``ops.inv_perm`` carry the transposition from the
@@ -410,20 +374,17 @@ def two_phase_operands_gcy(model, disc, baseline: Optional[str] = None,
     sigma_z(c) * ladder(a) (both Rouwenhorst and Tauchen;
     reference twin ``gcy_wc_ratio.py:109-120``).  The coupled part rides
     the column factors as diagonal conjugations batched the two
-    supported ways (c1 over next c2, c2 over current c1) with rank-2
-    lazy forms W[b] = exp(logW0 + t1[b] D1 + t2[b] D2) — the
-    generalization of the SSY rank-1 machinery — so the f32 tiled tier
-    covers wide-Rouwenhorst GCY grids whose plain operands NaN
-    (``conjugate_to_shared`` further lifts this set to shared factors
-    for the streamed tier, with the residual range pressure gated by
-    the factor-headroom warning).
+    supported ways (c1 over next c2, c2 over current c1), of the rank-2
+    form W[b] = exp(logW0 + t1[b] D1 + t2[b] D2) — the
+    generalization of the SSY rank-1 machinery — so the normalized set
+    covers wide-Rouwenhorst GCY grids whose plain operands NaN in f32.
     """
     from .discrete_gcy import _gcy_factors
 
     if baseline is not None:
         if baseline != "loglinear":
             raise ValueError(f"unknown baseline {baseline!r}")
-        return _two_phase_operands_gcy_normalized(model, disc, dense=dense)
+        return _two_phase_operands_gcy_normalized(model, disc)
 
     n_a, n_b, n_c, n_d, n_e, n_l = disc.shapes
     B_lam, A2, A3 = _gcy_factors(model, disc)
@@ -451,7 +412,7 @@ def two_phase_operands_gcy(model, disc, baseline: Optional[str] = None,
         warnings.warn(
             f"theta * (within-column-group log-w span) ~ "
             f"{abs(model.theta) * span:.0f} exceeds float32's exp range "
-            "(~85): the f32 tiled GCY operator will produce -inf/NaN on "
+            "(~85): the f32 two-phase GCY operator will produce -inf/NaN on "
             "this grid. Shrink the z / h_z axes (Rouwenhorst spans grow "
             "like sqrt(n)) or use the float64 XLA chain.", stacklevel=2)
 
@@ -469,23 +430,12 @@ def two_phase_operands_gcy(model, disc, baseline: Optional[str] = None,
     return ops
 
 
-def _two_phase_operands_gcy_normalized(model, disc,
-                                       dense: bool = True
-                                       ) -> TwoPhaseOperands:
+def _two_phase_operands_gcy_normalized(model, disc) -> TwoPhaseOperands:
     """Baseline-normalized GCY operand set (see
     :func:`two_phase_operands_gcy` for the derivation).  Equivalent math
     to the per-axis chain ``discrete_gcy._T_gcy_normalized`` regrouped
     into the 4-D two-phase form; exactness is asserted against it in
-    tests/test_tiled_two_phase.py.
-
-    ``dense=False`` skips materializing the (B, n, n) batched column
-    factors (O(n_states^{4/3}) memory and host time — and above the f32
-    overflow line at wide-Rouwenhorst grids, where only the
-    conjugated-shared route is evaluable anyway): ``W_c1``/``W_c2`` are
-    broadcast *placeholders* carrying only the shape, flagged via
-    ``ops.dense_placeholder`` so :func:`make_xla_two_phase_T` rejects
-    them; :func:`conjugate_to_shared` (the streamed tier's entry) uses
-    only the lazy triples and never touches them."""
+    tests/test_two_phase.py."""
     import warnings
 
     from .discrete_gcy import _gcy_factors, gcy_loglinear_parts
@@ -563,49 +513,35 @@ def _two_phase_operands_gcy_normalized(model, disc,
     E2 = theta * (t2[None, :] - t2[:, None])
     log0_c2 = logWc2 + theta * (phi_ce[None, :] - phi_ce[:, None])
 
-    # Dense batched factors: the XLA twin / JVP tangent path and
-    # dense-resident strip kernels at small grids (the tiled kernel
-    # switches to the lazy form above ``lazy_bytes``).  One vectorized
+    # Dense batched factors for the plain evaluator.  One vectorized
     # pass per factor (exp in place over the log argument), with the
-    # f32 exp-headroom measured from the same buffer.  dense=False
-    # skips all of it — wide grids route through conjugate_to_shared,
-    # whose shared factors never see these entries (which overflow f32
-    # outright at wide-Rouwenhorst spans, e.g. e^146 at the 8.4M
-    # (32,16,16,8,16,8) grid).
-    if dense:
-        # Per-slice loop with preallocated output: the equivalent
-        # one-shot broadcast expression hits a ~300x-slower numpy
-        # iteration path on large leading-broadcast temporaries
-        # (measured 132 s vs 0.44 s at (256, 512, 512) on this host).
-        W_c1 = np.empty((Q, P, P), np.float64)
-        for q in range(Q):
-            np.multiply(D1, t1[q], out=W_c1[q])
-            W_c1[q] += t2[q] * D2
-            W_c1[q] += logWc1
-        fac_max = float(W_c1.max())
-        np.exp(W_c1, out=W_c1)
-        W_c2 = np.empty((P, Q, Q), np.float64)
-        for p in range(P):
-            np.multiply(E1, u1[p], out=W_c2[p])
-            W_c2[p] += u2[p] * E2
-            W_c2[p] += log0_c2
-        fac_max = max(fac_max, float(W_c2.max()))
-        np.exp(W_c2, out=W_c2)
-        if fac_max > 45.0:
-            warnings.warn(
-                f"normalized-operator folded factors reach "
-                f"e^{fac_max:.0f}, beyond float32's exp-range headroom: "
-                "the dense/lazy-batched f32 strip kernels and the f32 "
-                "XLA twin will produce inf/NaN on this grid.  The "
-                "conjugated-shared streamed tier (engine='auto' routes "
-                "there when the column group is 128-aligned) carries "
-                "the corrections in log space and stays finite; "
-                "otherwise shrink the z / h_z axes, use "
-                "discretization='tauchen', or the float64 XLA chain.",
-                stacklevel=3)
-    else:
-        W_c1 = np.broadcast_to(np.exp(logWc1)[None], (Q, P, P))
-        W_c2 = np.broadcast_to(np.exp(log0_c2)[None], (P, Q, Q))
+    # f32 exp-headroom measured from the same buffer.
+    # Per-slice loop with preallocated output: the equivalent
+    # one-shot broadcast expression hits a ~300x-slower numpy
+    # iteration path on large leading-broadcast temporaries
+    # (measured 132 s vs 0.44 s at (256, 512, 512) on this host).
+    W_c1 = np.empty((Q, P, P), np.float64)
+    for q in range(Q):
+        np.multiply(D1, t1[q], out=W_c1[q])
+        W_c1[q] += t2[q] * D2
+        W_c1[q] += logWc1
+    fac_max = float(W_c1.max())
+    np.exp(W_c1, out=W_c1)
+    W_c2 = np.empty((P, Q, Q), np.float64)
+    for p in range(P):
+        np.multiply(E1, u1[p], out=W_c2[p])
+        W_c2[p] += u2[p] * E2
+        W_c2[p] += log0_c2
+    fac_max = max(fac_max, float(W_c2.max()))
+    np.exp(W_c2, out=W_c2)
+    if fac_max > 45.0:
+        warnings.warn(
+            f"normalized-operator folded factors reach "
+            f"e^{fac_max:.0f}, beyond float32's exp-range headroom: "
+            "the f32 two-phase evaluator will produce inf/NaN on "
+            "this grid.  Shrink the z / h_z axes, use "
+            "discretization='tauchen', or the float64 chain.",
+            stacklevel=3)
 
     # sub/add: theta * ell0 split over (rows, columns); add restores it
     # plus the true epilogue terms.
@@ -629,139 +565,22 @@ def _two_phase_operands_gcy_normalized(model, disc,
     object.__setattr__(ops, "perm", (3, 5, 0, 1, 2, 4))
     object.__setattr__(ops, "inv_perm", (2, 3, 4, 0, 5, 1))
     object.__setattr__(ops, "state_shapes", tuple(disc.shapes))
-    object.__setattr__(ops, "lazy_c1",
-                       (logWc1, np.stack([D1, D2]), np.stack([t1, t2])))
-    object.__setattr__(ops, "lazy_c2",
-                       (log0_c2, np.stack([E1, E2]), np.stack([u1, u2])))
-    if not dense:
-        object.__setattr__(ops, "dense_placeholder", True)
     return ops
-
-
-def _difference_split(D: np.ndarray, rtol: float = 1e-12):
-    """``u`` with ``D[i, m] = u[m] - u[i]`` (gauge ``u[0] = D[0, 0]``...
-    any gauge — the constant cancels between the pre/post corrections),
-    or None when ``D`` is not difference-separable."""
-    u = np.asarray(D, np.float64)[0, :]
-    resid = np.max(np.abs(D - (u[None, :] - u[:, None])))
-    scale = max(1.0, float(np.max(np.abs(D))))
-    return u if resid <= rtol * scale else None
-
-
-def conjugate_to_shared(ops: TwoPhaseOperands
-                        ) -> Optional[TwoPhaseOperands]:
-    """Exact shared-factor form of a batched operand set whose lazy
-    correction exponents are difference-separable.
-
-    A batched factor of the form ``W[b] = exp(log0 + sum_k t_k[b] D_k)``
-    with every ``D_k[x, x'] = u_k[x'] - u_k[x]`` is a diagonal
-    conjugation of the shared matrix ``W0 = exp(log0)``:
-
-        W[b] = diag(e^{-g(., b)}) @ W0 @ diag(e^{g(., b)}),
-        g(x, b) = sum_k u_k[x] t_k[b]
-
-    so its log-space contraction is (pre-add ``G``, shared contraction,
-    post-subtract ``G``) with the rank-K correction ``G = sum u_k (x) t_k`` —
-    elementwise adds that fold into ``sub_col`` (before c1), a single
-    ``mid_col`` term (between the contractions), and ``add_col`` (after
-    c2; column-constant adds commute through the row phase's LSE
-    contractions).  For the baseline-normalized discrete SSY operands
-    both corrections equal ``theta * psi`` exactly, so ``mid_col``
-    vanishes and the normalized operator becomes a plain shared-factor
-    two-phase chain — the unlock for the streamed kernel tier (and the
-    wide-z grids whose dense batched factors blow the f32/VMEM budget).
-
-    Returns None when a batched factor carries no difference-separable
-    lazy form (e.g. the continuous-SSY quadrature ``P_z``, whose
-    conditioning changes the interpolation geometry, not just a
-    multiplicative weight).
-    """
-    n_r1, n_r2, n_c1, n_c2 = ops.shapes
-    G1 = G2 = None
-    W_c1, W_c2 = ops.W_c1, ops.W_c2
-    if ops.c1_batched:
-        lazy = getattr(ops, "lazy_c1", None)
-        if lazy is None:
-            return None
-        log0, D, t = lazy
-        G1 = np.zeros((n_c1, n_c2), np.float64)
-        for D_k, t_k in zip(np.asarray(D, np.float64),
-                            np.asarray(t, np.float64)):
-            u = _difference_split(D_k)
-            if u is None:
-                return None
-            G1 = G1 + u[:, None] * t_k[None, :]               # (c1, c2)
-        W_c1 = np.exp(np.asarray(log0, np.float64))
-    if ops.c2_batched:
-        lazy = getattr(ops, "lazy_c2", None)
-        if lazy is None:
-            return None
-        log0, D, t = lazy
-        G2 = np.zeros((n_c1, n_c2), np.float64)
-        for D_k, t_k in zip(np.asarray(D, np.float64),
-                            np.asarray(t, np.float64)):
-            u = _difference_split(D_k)
-            if u is None:
-                return None
-            G2 = G2 + t_k[:, None] * u[None, :]               # (c1, c2)
-        W_c2 = np.exp(np.asarray(log0, np.float64))
-    if G1 is None and G2 is None:
-        return ops                      # already shared
-    zero = np.zeros((n_c1, n_c2), np.float64)
-    G1 = zero if G1 is None else G1
-    G2 = zero if G2 is None else G2
-    sub_col = (zero if ops.sub_col is None
-               else np.asarray(ops.sub_col, np.float64)) - G1
-    sub_row = (np.zeros((n_r1, n_r2), np.float64) if ops.sub_row is None
-               else ops.sub_row)
-    add_col = np.asarray(ops.add_col, np.float64) - G2
-    mid = G2 - G1
-    # Fold mid's separable parts out of the stage boundary: a pure-c2
-    # part h(q') commutes with the c1 contraction (move it before ->
-    # sub_col), a pure-c1 part f(p) with the c2 contraction (move it
-    # after -> add_col).  Gauge constants from the per-component
-    # difference splits land exactly here, so exactly-conjugated sets
-    # (normalized SSY *and* GCY) come out mid-free — streamed-tier
-    # coverage (the deferred configuration does not plumb mid_col).
-    h_q = mid[0, :]
-    f_p = mid[:, 0] - mid[0, 0]
-    if np.allclose(mid, f_p[:, None] + h_q[None, :],
-                   rtol=0.0, atol=1e-12 * max(1.0, np.max(np.abs(mid)))):
-        sub_col = sub_col - h_q[None, :]
-        add_col = add_col + f_p[:, None]
-        mid = None
-    elif np.max(np.abs(mid)) == 0.0:
-        mid = None
-    conj = dataclasses.replace(
-        ops, W_c1=W_c1, W_c2=W_c2,
-        sub_row=sub_row, sub_col=sub_col, mid_col=mid,
-        add_col=add_col)
-    for attr in ("perm", "inv_perm", "state_shapes"):
-        if hasattr(ops, attr):
-            object.__setattr__(conj, attr, getattr(ops, attr))
-    return conj
 
 
 def make_xla_two_phase_T(ops: TwoPhaseOperands, dtype=jnp.float32,
                          precision: str = "highest") -> Callable:
     """Plain-XLA evaluator of a two-phase operand set.
 
-    Bit-for-bit the same math as the tiled Pallas kernels (same contraction
-    order, same per-step shifts): the agreement oracle in the tests, the
-    tangent body for the kernels' custom JVP, and the GSPMD-shardable
-    fallback at sizes/backends the kernels don't cover.
+    The two-phase grouping contracted in plain JAX, GSPMD-shardable; the
+    per-axis operators are its agreement oracle in the tests.
 
     ``precision``: "highest" (default), "3x" (three-pass bf16 hi/lo
-    splits — ``ops/contract.einsum_p``; ~2^-17 relative at half the MXU
-    cost, the tier for Newton inner matvecs whose forcing tolerance is
-    1e-4-class), or "default".  f64 always contracts at HIGHEST.
+    splits — ``ops/contract.einsum_p``; ~2^-17 relative, the tier for
+    Newton inner matvecs whose forcing tolerance is 1e-4-class), or
+    "default".  f64 always contracts at HIGHEST.
     """
     pair = getattr(ops, "pair_c2", None)
-    if pair is None and getattr(ops, "dense_placeholder", False):
-        raise ValueError(
-            "operand set was built with dense=False (batched column "
-            "factors not materialized); conjugate_to_shared it for the "
-            "streamed tier, or rebuild with dense=True")
     n_r1, n_r2, n_c1, n_c2 = ops.shapes
     R, C = n_r1 * n_r2, n_c1 * n_c2
     cast = lambda a: jnp.asarray(a, dtype)
@@ -780,15 +599,13 @@ def make_xla_two_phase_T(ops: TwoPhaseOperands, dtype=jnp.float32,
     if ops.has_sub:
         sub = cast(ops.sub_row.reshape(-1)[:, None, None]
                    + ops.sub_col[None, :, :])                # (R, c1, c2)
-    mid = cast(ops.mid_col[None, :, :]) if ops.has_mid else None
     theta = jnp.asarray(ops.theta, dtype)
     beta = jnp.asarray(ops.beta, dtype)
     c1_sub = "jim,tmj->tij" if ops.c1_batched else "im,tmj->tij"
     c2_sub = "ijm,tim->tij" if ops.c2_batched else "jm,tim->tij"
-    # True-f32 MXU passes by default (the TPU default demotes f32
-    # operands to bf16, a measured ~6x loss on one-application
-    # accuracy); accurate transcendentals (the hardware f32 log costs
-    # ~1e-4 abs per stage, see ops/accurate.py).
+    # True-f32 matmuls by default (a device default of reduced-precision
+    # matmul passes loses digits on one application); accurate
+    # transcendentals (see ops/accurate.py).
     from ..ops.accurate import accurate_exp, accurate_log, accurate_log1p
     from ..ops.contract import einsum_p
     if precision not in ("highest", "3x", "default"):
@@ -801,8 +618,6 @@ def make_xla_two_phase_T(ops: TwoPhaseOperands, dtype=jnp.float32,
             a = a - sub
         m = jnp.max(a, axis=1, keepdims=True)
         a = m + accurate_log(ein(c1_sub, W_c1, accurate_exp(a - m)))
-        if mid is not None:
-            a = a + mid
         m = jnp.max(a, axis=2, keepdims=True)
         if pair is not None:
             e = accurate_exp(a - m).reshape(R, n_i, n_y, n_b, n_j)

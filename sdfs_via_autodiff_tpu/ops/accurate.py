@@ -1,19 +1,16 @@
-"""Accurate float32 transcendentals for the TPU VPU.
+"""Accurate float32 transcendentals.
 
-The TPU's hardware f32 ``exp``/``log`` are low-precision polynomial
-approximations: measured on this environment's v5e, ``jnp.log`` has max
-absolute error ~1.1e-4 and ``jnp.exp`` ~6e-6 relative (CPU f32: 2.8e-7 /
-1e-6).  Since every log-sum-exp contraction in the log-space operators
-passes through one exp and one log, the hardware ``log`` alone sets the
-framework's entire f32 one-application floor (~1e-4, see
-``docs/precision.md``) — the matmuls at HIGHEST precision and the f32
-representation rounding are an order of magnitude better.
+Every log-sum-exp contraction in the log-space operators passes through
+one exp and one log, so a device whose f32 ``exp``/``log`` are
+low-precision approximations sets the whole f32 one-application floor
+with them.  The error of the GPU's own f32 ``jnp.exp``/``jnp.log`` has not
+been measured on the card; until it is, the f32 operators default to the
+versions here (``transcendentals="accurate"``; docs/precision.md).
 
 This module provides faithfully-rounded (~1 ulp) f32 ``exp``/``log``
 built from exact bit-level range reduction plus short polynomial
-evaluations — all VPU-friendly elementwise int/float ops that XLA fuses
-like any other elementwise chain, and that Mosaic lowers inside Pallas
-kernels.  Construction follows the standard single-precision libm
+evaluations — elementwise int/float ops that XLA fuses like any other
+elementwise chain.  Construction follows the standard single-precision libm
 approach (exponent extraction via bitcast; ``log`` via the atanh series
 of the mantissa, ``exp`` via Cody-Waite two-term ln2 reduction), written
 from the mathematical definitions.
@@ -92,8 +89,6 @@ def exp_f32(x):
     the caller to keep arguments under ~88.7 (the log-space operators
     always shift arguments to <= 0 first).  Differentiable via the exact
     rule d exp = exp * dx (the bit-level range reduction itself is not).
-    Inside Pallas kernels call ``_exp_f32_impl`` (the raw body): the
-    custom_jvp wrapper trips a lowering recursion under Mosaic.
     """
     return _exp_f32_impl(x)
 
@@ -135,8 +130,7 @@ def _log_f32_impl(u):
 def log_f32(u):
     """Faithfully-rounded float32 log (elementwise) for positive finite
     inputs; returns -inf at 0 (via the hardware log on the non-normal
-    path) and propagates nan/inf.  Differentiable via d log = du / u.
-    Inside Pallas kernels call ``_log_f32_impl``."""
+    path) and propagates nan/inf.  Differentiable via d log = du / u."""
     return _log_f32_impl(u)
 
 
@@ -147,14 +141,14 @@ def _log_f32_jvp(primals, tangents):
 
 
 def accurate_exp(x):
-    """exp with ~1-ulp f32 accuracy on TPU; identity passthrough to
+    """exp with ~1-ulp f32 accuracy; identity passthrough to
     ``jnp.exp`` for wider dtypes (f64 already accurate)."""
     x = jnp.asarray(x)
     return exp_f32(x) if x.dtype == jnp.float32 else jnp.exp(x)
 
 
 def accurate_log(u):
-    """log with ~1-ulp f32 accuracy on TPU; passthrough for f64."""
+    """log with ~1-ulp f32 accuracy; passthrough for f64."""
     u = jnp.asarray(u)
     return log_f32(u) if u.dtype == jnp.float32 else jnp.log(u)
 
@@ -181,8 +175,7 @@ def log1p_f32(y):
     """Accurate float32 log1p: the hardware log1p shares the hardware
     log's ~1e-4 error.  Below the crossover the odd series is ~f32-
     exact; above it log_f32(1+y) carries the exact correction for the
-    bits 1+y rounds away (see ``_log1p_f32_impl``).  Inside Pallas
-    kernels call ``_log1p_f32_impl``."""
+    bits 1+y rounds away (see ``_log1p_f32_impl``)."""
     return _log1p_f32_impl(y)
 
 
@@ -193,6 +186,6 @@ def _log1p_f32_jvp(primals, tangents):
 
 
 def accurate_log1p(y):
-    """log1p with ~1-ulp f32 accuracy on TPU; passthrough for f64."""
+    """log1p with ~1-ulp f32 accuracy; passthrough for f64."""
     y = jnp.asarray(y)
     return log1p_f32(y) if y.dtype == jnp.float32 else jnp.log1p(y)

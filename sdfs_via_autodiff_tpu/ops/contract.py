@@ -4,7 +4,7 @@
 
     m = max(a, axis); result = m + log(M @ exp(a - m))
 
-Each step stays a dense matmul on the MXU with all exponentials in (0, 1].
+Each step stays a dense matmul with all exponentials in (0, 1].
 A *single global* shift (as in a naive log-space formulation) overflows
 f32 once the iterate's dynamic range exceeds exp's range — at the SSY
 calibration theta*Delta(log w) passes the f32 limit (~87) already on
@@ -27,14 +27,13 @@ __all__ = ["lse_matmul", "einsum_p"]
 def einsum_p(subscripts: str, M, E, precision: str = "highest"):
     """Two-operand einsum with a named precision tier.
 
-    "highest": true-f32 MXU passes (6 bf16 passes on TPU — the accuracy
-    default).  "3x": three native-bf16 passes on hi/lo operand splits
-    (the streamed kernels' scheme, ``kernels/streamed_two_phase._dot_p``
-    — ~2^-17 relative on positive summands at half HIGHEST's cost; the
-    inexact-Newton inner matvecs with inner_tol=1e-4 are its intended
-    consumer).  "default": one bf16 pass (~1e-3, throughput
-    experiments).  float64 operands always use HIGHEST (the bf16 split
-    would destroy f64 precision)."""
+    "highest": true-f32 matmuls (the accuracy default; on the GPU the
+    default precision would run f32 operands in TF32).  "3x": three
+    bf16 products on hi/lo operand splits (~2^-17 relative on positive
+    summands; the inexact-Newton inner matvecs with inner_tol=1e-4 are
+    its intended consumer).  "default": the device's default precision
+    (~1e-3, throughput experiments).  float64 operands always use
+    HIGHEST (the bf16 split would destroy f64 precision)."""
     if precision not in ("highest", "3x", "default"):
         raise ValueError(f"unknown precision {precision!r} "
                          "(choose 'highest', '3x', or 'default')")
@@ -186,9 +185,8 @@ def _lse_matmul_deep(Mn, log_v, subscripts, axis, transcendentals,
     WINDOW, not per pass of the autodiff'd primal.
 
     The naive autodiff of the multi-pass primal multiplies every
-    tangent matvec and its residuals by the pass count — measured: a
-    two-pass autodiff'd Newton at the 25.2M GCY north-star case went
-    from compiling (pre-deep-window) to a 17.5G HBM compile OOM.  The
+    tangent matvec and its residuals by the pass count, which at
+    10^7-point grids exhausts device memory at compile time.  The
     fix is mathematical, not scheduling: for every window the exact
     derivative is the same softmax average ``d out = (Mn^ @ (exp(v - m
     + s) dv)) / u_s`` for any shift ``s`` whose contraction ``u_s``
@@ -278,18 +276,12 @@ def lse_matmul(M: jnp.ndarray, log_v: jnp.ndarray, subscripts: str,
     below their slice max, past the two-pass union — K=3 covers ~247.
 
     ``transcendentals``: "accurate" (default) uses the faithfully-rounded
-    software f32 exp/log (``ops/accurate.py``) — the TPU VPU's hardware
-    f32 log is the dominant error source of the whole chain (~1e-4 abs).
-    "fast" uses the hardware ops: in the *unfused* XLA chain the 10+
-    separate software-polynomial VPU passes cost ~6x wall time (the
-    tiled/fused kernels absorb them into DMA slack and keep accurate at
-    no cost) — an escape hatch for speed-over-accuracy runs of the XLA
-    tier.  "mixed" pairs the hardware exp (~6e-6 relative — not the
-    dominant error) with the accurate log, matching the strip/streamed
-    kernels' tier of the same name so ``engine="auto"`` fallbacks keep
-    the option.  No-op for float64 either way.
+    software f32 exp/log (``ops/accurate.py``).  "fast" uses the
+    device's own ``jnp.exp``/``jnp.log``, an escape hatch for
+    speed-over-accuracy runs.  "mixed" pairs the device exp with the
+    accurate log.  No-op for float64 either way.
 
-    ``precision``: "highest" (default — true-f32 MXU passes), "3x"
+    ``precision``: "highest" (default — true-f32 matmuls), "3x"
     (three-pass bf16 hi/lo splits, ~2^-17 relative at half the matmul
     cost — the Newton inner-matvec tier), or "default" (one bf16 pass);
     see :func:`einsum_p`.
@@ -303,9 +295,8 @@ def lse_matmul(M: jnp.ndarray, log_v: jnp.ndarray, subscripts: str,
                                float(deep_window), int(deep_passes))
         return out + log_s
     m = _safe_shift(log_v, axis)
-    # HIGHEST keeps f32 operands in true f32 on the MXU (the TPU default
-    # demotes them to one-pass bf16, a measured ~6x loss on the operator's
-    # one-application error); these contractions are bandwidth-bound, so
-    # the extra multiplier passes are ~free.  No-op for float64.
+    # HIGHEST keeps f32 operands in true f32 (the GPU default runs them in
+    # TF32, about three digits); these contractions are bandwidth-bound,
+    # so the extra precision is ~free.  No-op for float64.
     u = einsum_p(subscripts, M, exp_(log_v - m), precision)
     return m + log_(u) + log_s

@@ -6,7 +6,7 @@ map_coordinates(order=1, mode='nearest')`` pair (reference
 out-of-range query points are clamped to the grid edges (the 'nearest'
 boundary rule), interior points get the standard 2^d-corner convex
 combination.  Written as plain JAX gathers so it vmaps, jits, shards and
-differentiates; a fused Pallas variant lives in ``kernels/``.
+differentiates.
 """
 
 from __future__ import annotations

@@ -14,7 +14,7 @@ construction (Rouwenhorst 1995; Kopecky–Suen 2010):
 * transition matrix built by the standard recursive embedding
 * states equally spaced on ``mu/(1-rho) ± sigma*sqrt((n-1)/(1-rho^2))``
 
-Key structural fact exploited by the TPU operators: the transition matrix
+Key structural fact exploited by the operators: the transition matrix
 depends only on ``rho`` (not on ``sigma`` or ``mu``), so families of chains
 that share ``rho`` — e.g. the volatility-dependent z-chains in SSY/GCY —
 share a single transition matrix while only the state ladder is scaled and

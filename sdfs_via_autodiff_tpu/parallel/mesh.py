@@ -2,14 +2,13 @@
 
 The workload's scaling axis is state-grid size (SURVEY.md §5): w lives on a
 tensor-product grid, and every operator is a chain of per-axis contractions
-of w against small transition factors.  The TPU-native parallelism is
-therefore *grid sharding*: lay w out over an ICI mesh with
-``NamedSharding`` on one or two grid axes and let GSPMD partition the
-contraction chain — per-axis matmuls over a sharded axis become local
-partial matmuls plus XLA-inserted collectives (psum/all-gather riding ICI),
-and the solvers' sup-norm reductions compile to psum-max.  The reference
-has no multi-device path at all (single device, ``CUDA_VISIBLE_DEVICES``
-pinning only — SURVEY.md §2 parallelism table).
+of w against small transition factors.  The parallelism is therefore *grid
+sharding*: lay w out over a device mesh with ``NamedSharding`` on one or two
+grid axes and let GSPMD partition the contraction chain — per-axis matmuls
+over a sharded axis become local partial matmuls plus XLA-inserted
+collectives, and the solvers' sup-norm reductions compile to a max across
+devices.  The reference has no multi-device path at all (single device,
+``CUDA_VISIBLE_DEVICES`` pinning only — SURVEY.md §2 parallelism table).
 
 Two mesh axes are exposed, named ``dp`` and ``tp`` by convention:
 
@@ -19,9 +18,11 @@ Two mesh axes are exposed, named ``dp`` and ``tp`` by convention:
   the tensor-parallel analogue (the contraction over a sharded axis is a
   sharded matmul + reduction).
 
-Tested on virtual CPU meshes (``--xla_force_host_platform_device_count``)
-and dry-run compiled for n-device meshes by ``__graft_entry__.
-dryrun_multichip``.
+The cards of one host are joined all to all, so the mesh shape follows the
+algorithm: a 4x1 mesh shards one grid axis and puts collectives on one
+contraction of the chain, where 2x2 puts them on two.  Tested on virtual CPU
+meshes (``--xla_force_host_platform_device_count``) and on four cards by
+``chip_smoke.py --devices 4``.
 """
 
 from __future__ import annotations

@@ -1,4 +1,4 @@
-"""Explicit shard_map operators with hand-placed ICI collectives.
+"""Explicit shard_map operators with hand-placed collectives.
 
 The default multi-device path lets GSPMD partition the einsum chains
 (``parallel/mesh.py``).  This module is the explicit counterpart for the
@@ -8,20 +8,17 @@ is written as
 
     local partial matmul  ->  psum_scatter over the mesh axis
 
-i.e. a reduce-scatter riding ICI, with the per-axis log-sum-exp shift's
-max computed by ``lax.pmax``.  The remaining three contractions are
+i.e. a reduce-scatter between the devices, with the per-axis log-sum-exp
+shift's max computed by ``lax.pmax``.  The remaining three contractions are
 shard-local.  This is the communication shape SURVEY.md §5 describes for
-sharded-axis contractions (a ring-reduce identical in structure to ring
-attention's KV pass); XLA lowers psum_scatter to exactly that on a ring.
+sharded-axis contractions; XLA hands psum_scatter to NCCL on the GPU.
 
-Used for: pinning down the collective pattern (tested bit-for-bit against
-the GSPMD path on virtual meshes) and as the template for multi-slice
-(DCN) layouts later.
+Used for: pinning down the collective pattern (tested against the GSPMD
+path on virtual meshes, and on four cards by ``chip_smoke.py --devices 4``).
 """
 
 from __future__ import annotations
 
-from functools import partial
 from typing import Callable
 
 import jax
@@ -33,440 +30,7 @@ from jax import shard_map
 from ..models.ssy import SSY
 from ..operators.discrete_ssy import SSYDiscretization, _ssy_factors
 
-__all__ = ["T_ssy_shard_map_factory", "two_phase_shard_map_factory",
-           "streamed_shard_map_factory"]
-
-
-def streamed_shard_map_factory(ops, mesh: Mesh, axis_names=None,
-                               dtype=None, mode: str = "auto",
-                               precision: str = "3x",
-                               transcendentals: str = "accurate",
-                               batch_axis=None,
-                               interpret: bool = False) -> Callable:
-    """Multi-device *Pallas fast tier*: the streamed big-matmul kernels
-    (``kernels/streamed_two_phase.py``) composed over an ICI mesh.
-
-    The two passes have opposite locality, so the composition is
-    shard-local kernels + two all-to-all reshards:
-
-        field sharded over the leading row axis (n_r1) on the mesh ->
-        pass B (column phase) runs the per-shard single-device kernel on
-        local rows (columns are complete per shard);
-        all_to_all reshards rows -> columns (each device trades its
-        column blocks for the full row range of its column shard);
-        pass C (z maps + row phase + epilogue) runs the per-shard kernel
-        on local columns (rows complete);
-        all_to_all reshards back, keeping the operator layout-stable.
-
-    The only other collectives are scalar/vector-sized: a pmax for the
-    global shift S and an all_gather of the (R, 1) per-row scales (fast
-    mode).  Per-device HBM traffic is the single-chip kernels' on 1/n of
-    the field; ICI carries 2 * (n-1)/n of a field pass per application.
-    Per-row/per-column math is identical to the single-device kernels,
-    so shared-c2 results (full-strip and deferred-c2 — the GCY Kronecker
-    grouping's configuration, whose per-slice LSE shifts are
-    block-independent) are bit-equal, and batched-c2 results agree to a
-    few ulp (their joint per-row shift spans the pass-C column block,
-    whose width differs per shard) — asserted in tests/test_sharding.py.
-
-    Differentiable via a custom JVP whose tangent runs through the GSPMD
-    XLA twin.  Requires n_r1 and n_c1 divisible by the total mesh size.
-
-    ``batch_axis`` (multi-slice / DCN layout): name of a mesh axis that
-    models the slow inter-slice network.  The returned operator then
-    maps a BATCHED field ``(n_slices, *shapes)`` — one independent sweep
-    member per slice (e.g. a parameter sweep, the realistic multi-slice
-    deployment of a fixed-point solver) — with the batch axis sharded
-    over ``batch_axis`` and each member's rows/columns over the
-    remaining ``axis_names``.  Every per-iteration collective (the two
-    all-to-all reshards, the pmax/all_gather of fast-mode scales) names
-    only the intra-slice axes, so NOTHING crosses the DCN axis per
-    application — asserted against compiled-HLO replica groups in
-    tests/test_sharding.py (TestTwoSliceDCN) and exercised by
-    ``__graft_entry__.dryrun_multichip``.
-    """
-    import numpy as np
-
-    from ..kernels.streamed_two_phase import (_C_BLOCK_BYTES, _PRECISION,
-                                              _TRX, _deferred_b_config,
-                                              _streamed_config,
-                                              _warn_conjugated_f32_floor,
-                                              blockdiag_z, build_b_call,
-                                              build_b_call_deferred,
-                                              build_c_call,
-                                              streamed_coverable)
-    from ..operators.two_phase import make_xla_two_phase_T
-
-    if dtype is not None and dtype != jnp.float32:
-        # Same tier boundary as make_streamed_T_log: f64 blocks die in
-        # Mosaic lowering with an opaque error, so reject upfront.
-        raise ValueError("streamed kernels are the float32 tier; use "
-                         "two_phase_shard_map_factory for float64")
-    if transcendentals not in ("fast", "mixed", "accurate"):
-        raise ValueError(f"unknown transcendentals {transcendentals!r} "
-                         "(choose 'accurate', 'mixed', or 'fast')")
-    if precision not in ("highest", "3x", "default"):
-        raise ValueError(f"unknown precision {precision!r} "
-                         "(choose 'highest', '3x', or 'default')")
-    members = None
-    if isinstance(ops, (list, tuple)):
-        # Per-slice operand sweep: one operand SET per slice (a
-        # calibration sweep on the Pallas fast tier) — requires
-        # batch_axis; the kernels are compiled once and shared, so
-        # theta/beta (baked into them as scalars) must match across
-        # members, as must the grid shapes and operand structure.
-        # Sweeps over gamma/psi/beta change theta and belong on the XLA
-        # tier (drivers.wc_ratio_sweep).
-        if batch_axis is None:
-            raise ValueError("a per-slice operand sweep (list of operand "
-                             "sets) requires batch_axis")
-        if not ops:
-            raise ValueError("empty operand sweep")
-        members = []
-        for om in ops:
-            c = streamed_coverable(om)
-            if c is None:
-                raise ValueError("sweep member not covered by the "
-                                 "streamed kernels")
-            if c is not om:
-                _warn_conjugated_f32_floor(c)
-            members.append(c)
-        ops = members[0]
-        for om in members[1:]:
-            if om.shapes != ops.shapes:
-                raise ValueError("sweep members must share grid shapes")
-            if (float(om.theta) != float(ops.theta)
-                    or float(om.beta) != float(ops.beta)):
-                raise ValueError(
-                    "sweep members must share theta and beta (compiled "
-                    "into the kernels as scalars); gamma/psi/beta sweeps "
-                    "belong on the XLA tier (drivers.wc_ratio_sweep)")
-            if (om.c2_batched != ops.c2_batched
-                    or om.has_sub != ops.has_sub
-                    or om.has_mid != ops.has_mid
-                    or ((getattr(om, "pair_c2", None) is None)
-                        != (getattr(ops, "pair_c2", None) is None))):
-                raise ValueError(
-                    "sweep members must share operand structure "
-                    "(baseline/batching/pair configuration)")
-    else:
-        covered = streamed_coverable(ops)
-        if covered is None:
-            raise ValueError("operand set not covered by the streamed "
-                             "kernels")
-        if covered is not ops:
-            # Same accuracy-envelope warning the single-device factory
-            # emits for conjugated-shared operand sets (shared-factor
-            # entries below f32's floor flush to zero and the
-            # conjugation corrections can re-amplify them).
-            _warn_conjugated_f32_floor(covered)
-        ops = covered
-    _cfg = _streamed_config(ops)
-    deferred = _cfg["kind"] == "deferred"
-    pair = _cfg["kind"] == "pair"
-    if axis_names is None:
-        axis_names = tuple(a for a in mesh.axis_names if a != batch_axis)
-    elif isinstance(axis_names, str):
-        axis_names = (axis_names,)
-    else:
-        axis_names = tuple(axis_names)
-    if not axis_names:
-        raise ValueError(
-            "streamed_shard_map_factory needs at least one intra-slice "
-            "mesh axis besides the batch axis (a one-chip-per-slice "
-            "sweep has nothing to shard — run the members as "
-            "single-device kernels instead)")
-    n_slice = 0
-    if batch_axis is not None:
-        if batch_axis in axis_names:
-            raise ValueError(
-                f"batch_axis {batch_axis!r} must not be one of the "
-                f"intra-slice axes {axis_names}")
-        n_slice = mesh.shape[batch_axis]
-    n_dev = int(np.prod([mesh.shape[a] for a in axis_names]))
-    L, K, I, J = ops.shapes
-    R, C = L * K, I * J
-    if L % n_dev or I % n_dev:
-        raise ValueError(
-            f"row axis n_r1={L} and column axis n_c1={I} must each be "
-            f"divisible by the mesh size {n_dev}")
-    if pair and ops.pair_shapes[0] % n_dev:
-        # Column shards must own whole current-h_z groups: the pair
-        # pass-C kernel's slice -> (i, y) mapping and its streamed P_z
-        # slice both index i LOCALLY, which is only consistent when the
-        # contiguous column shard boundary falls on an i-group boundary.
-        raise ValueError(
-            f"pair operand sets need n_hz = {ops.pair_shapes[0]} "
-            f"divisible by the mesh size {n_dev}")
-    L_loc, I_loc = L // n_dev, I // n_dev
-    R_loc, C_loc = L_loc * K, I_loc * J
-
-    if mode == "auto":
-        mode = "lse" if (ops.has_sub or deferred or pair) else "fast"
-    if mode not in ("fast", "lse"):
-        raise ValueError(f"unknown mode {mode!r}")
-    if (deferred or pair) and mode == "fast":
-        raise ValueError("deferred-c2/pair operand sets run per-axis "
-                         "LSE only")
-    fast = mode == "fast"
-    prec = _PRECISION[precision]
-    trx = transcendentals
-    work = dtype or jnp.float32
-    theta_f, beta_f = float(ops.theta), float(ops.beta)
-    cast = lambda a: jnp.asarray(a, work)
-
-    c2_batched = ops.c2_batched
-    has_sub = ops.has_sub
-    has_mid = ops.has_mid
-    if has_mid and mode == "fast":
-        raise ValueError("mid_col (conjugated-shared) operands need "
-                         "the lse mode")
-
-    if deferred or pair:
-        # Deferred-c2 (oversized column group, e.g. the GCY Kronecker
-        # grouping) and the pair configuration (continuous GCY): per-
-        # shard pass B contracts only c1 on (TB, I, TJ) blocks of the
-        # local rows; the c2 contraction rides into the per-shard
-        # pass C.  Same two all-to-all reshards as the full-strip
-        # composition; the per-slice LSE shifts are block-independent,
-        # so results stay bit-equal to the single-device kernels.
-        bcfg = _deferred_b_config((L_loc, K, I, J))
-        if bcfg is None:
-            raise ValueError(
-                f"per-shard row range R/n = {R_loc} has no deferred "
-                "pass-B block decomposition; choose grid sizes with "
-                "more rows per device or a smaller mesh")
-        b_call, _ = build_b_call_deferred(
-            R_rows=R_loc, I=I, J=J, TB=bcfg[0], TJ=bcfg[1],
-            theta=theta_f, prec=prec, trx=trx, has_sub=has_sub,
-            dtype=work, interpret=interpret)
-    else:
-        b_call, _ = build_b_call(R_rows=R_loc, I=I, J=J, theta=theta_f,
-                                 prec=prec, trx=trx, mode=mode,
-                                 has_sub=has_sub, c2_here=not c2_batched,
-                                 dtype=work, has_mid=has_mid,
-                                 interpret=interpret)
-    if pair:
-        from ..kernels.streamed_two_phase import build_c_call_pair
-        c_call, TC = build_c_call_pair(
-            shapes=ops.shapes, pair_shapes=ops.pair_shapes,
-            C_cols=C_loc, g=_cfg["g"], theta=theta_f, beta=beta_f,
-            prec=prec, trx=trx, dtype=work, interpret=interpret)
-    else:
-        c_call, TC = build_c_call(shapes=ops.shapes, C_cols=C_loc,
-                                  theta=theta_f, beta=beta_f, prec=prec,
-                                  trx=trx, mode=mode,
-                                  c2_batched=c2_batched,
-                                  c2_deferred=deferred, dtype=work,
-                                  interpret=interpret)
-    if TC % 128 and not interpret:
-        raise ValueError(
-            f"per-shard column range C/n = {C_loc} has no 128-aligned "
-            "block decomposition (Mosaic's minor-merge rule): choose "
-            "grid sizes with (n_c1*n_c2) % (128*mesh_size) == 0, or a "
-            "smaller mesh")
-    # Re-apply _streamed_config's pass-C budget/grouping checks on the
-    # PER-SHARD shapes: _pick_tc's whole-block fallback (C_loc not a
-    # multiple of its alignment unit) can return TC = C_loc past the
-    # VMEM budget that held for the global C, and a Mosaic compile
-    # failure there is opaque where this ValueError is actionable.
-    if R * TC * 4 > 4 * _C_BLOCK_BYTES:
-        raise ValueError(
-            f"per-shard pass-C block ({R} rows x {TC} columns) exceeds "
-            "the streamed kernels' VMEM budget: choose grid sizes whose "
-            f"per-shard column range C/n = {C_loc} is a multiple of "
-            f"{int(np.lcm(J, 128)) if (c2_batched or deferred) else 128}, "
-            "or a smaller mesh")
-    if (c2_batched or deferred) and (
-            TC % J or (c2_batched and I % (TC // J))):
-        raise ValueError(
-            f"per-shard pass-C block width TC = {TC} does not hold whole "
-            f"c2 slices (J = {J}): choose grid sizes with C/n a multiple "
-            f"of lcm(J, 128), or a smaller mesh")
-    def member_operands(om):
-        """Ordered device-operand list for ONE operand set (shared by
-        the single-operator path and the per-slice sweep, which stacks
-        these elementwise).  Pair factors ship SHARDED over their
-        leading axis with the column shards: the per-slice z_pi weights
-        (q = i*n_y + y -> row q holds P_zpi[y]) and P_z in the kernel's
-        (i, b, J, j) transpose — each column shard owns a contiguous
-        range of c1 slices whose (slice, i-group) ranges match its
-        operand shards, so the kernel's static in-block indices and its
-        (c*g)//n_hzpi block index are exactly the local ones.  Batched
-        c2 ships as per-block block-diagonal maps; deferred c2 as the
-        shared (J, J) map; unused slots carry tiny placeholders."""
-        W_c1m = cast(om.W_c1)
-        W_c2m = None if c2_batched else cast(om.W_c2)
-        Pzpim = jnp.zeros((n_dev, 1, 1), work)
-        PzTm = jnp.zeros((n_dev, 1, 1, 1), work)
-        if pair:
-            from ..kernels.streamed_two_phase import pair_device_operands
-            Z2m = jnp.zeros((n_dev, 1, 1), work)
-            Pzpim, PzTm = pair_device_operands(om, cast)
-        elif c2_batched:
-            Z2m = cast(blockdiag_z(np.asarray(om.W_c2, np.float64), TC))
-        elif deferred:
-            Z2m = W_c2m                 # shared map, contracted in pass C
-        else:
-            Z2m = jnp.zeros((n_dev, 1, 1), work)
-        W_c2_shipm = (jnp.zeros((1, 1), work)
-                      if (c2_batched or deferred) else W_c2m)
-        out = [W_c1m, W_c2_shipm, Z2m, Pzpim, PzTm,
-               cast(om.W_r1), cast(om.W_r2), cast(om.add_row),
-               cast(np.asarray(om.add_col, np.float64).reshape(1, C))]
-        if has_sub:
-            out += [cast(np.asarray(om.sub_row, np.float64)
-                         .reshape(R, 1)), cast(om.sub_col)]
-        if has_mid:
-            out.append(cast(om.mid_col))
-        return out
-
-    exp_ = _TRX[trx][0]
-    names = axis_names if len(axis_names) > 1 else axis_names[0]
-
-    def local_T(ell_loc, W_c1_, W_c2_, Z2_loc, Pzpi_, PzT_loc, W_r1_,
-                W_r2_, add_row_, addc_loc, *maybe_sub):
-        # ell_loc: (L_loc, K, I, J)
-        b_args = [W_c1_]
-        if not (c2_batched or deferred):
-            b_args.append(W_c2_)
-        extra = list(maybe_sub)
-        if has_sub:
-            sub_row_loc, sub_col_ = extra[:2]
-            extra = extra[2:]
-            b_args += [sub_row_loc.reshape(R_loc, 1), sub_col_]
-        if has_mid:
-            b_args.append(extra[0])
-        x = ell_loc.astype(work).reshape(R_loc, I, J)
-        if fast:
-            mid, s = b_call(x, *b_args)
-            S = lax.pmax(jnp.max(s), names)
-            scale_loc = exp_(s - S)
-            scale = lax.all_gather(scale_loc, names, axis=0, tiled=True)
-        else:
-            mid = b_call(x, *b_args)
-        # mid (R_loc, C) -> (R, C_loc): trade column blocks for the
-        # full row range of the local column shard.
-        midv = lax.all_to_all(mid.reshape(R_loc, C), names, split_axis=1,
-                              concat_axis=0, tiled=True)
-        c_args = [midv]
-        if fast:
-            c_args.append(scale)
-        if pair:
-            c_args += [Pzpi_, PzT_loc]
-        elif c2_batched or deferred:
-            c_args.append(Z2_loc)
-        c_args += [W_r1_, W_r2_, add_row_, addc_loc]
-        if fast:
-            c_args.append(S.reshape(1))
-        out_v = c_call(*c_args)                               # (R, C_loc)
-        out = lax.all_to_all(out_v, names, split_axis=0, concat_axis=1,
-                             tiled=True)                      # (R_loc, C)
-        return out.reshape(L_loc, K, I, J)
-
-    if batch_axis is None:
-        spec = PartitionSpec(axis_names, None, None, None)
-        body = local_T
-    elif members is None:
-        # Multi-slice: one sweep member per slice, replicated operands;
-        # local_T's collectives name only the intra-slice axes.
-        spec = PartitionSpec(batch_axis, axis_names, None, None, None)
-
-        def body(ell5, *rest):
-            return local_T(ell5[0], *rest)[None]
-    else:
-        # Per-slice operand sweep: operands stacked with a leading
-        # member axis sharded over batch_axis; each slice computes with
-        # ITS calibration's factors.
-        spec = PartitionSpec(batch_axis, axis_names, None, None, None)
-
-        def body(ell5, *rest):
-            return local_T(ell5[0], *[r[0] for r in rest])[None]
-    # Column-sharded operands feed pass C (the block-diagonal z maps /
-    # pair factors over their leading block index; the add_col strip
-    # over columns); everything else is replicated within a slice.
-    repn = lambda n: PartitionSpec(*(None,) * n)
-    z2_spec = (repn(2) if deferred
-               else PartitionSpec(axis_names, None, None))
-    base_specs = [repn(2),                                    # W_c1
-                  repn(2),                                    # W_c2_ship
-                  z2_spec,
-                  PartitionSpec(axis_names, None, None),      # Pzpi
-                  PartitionSpec(axis_names, None, None, None),  # PzT
-                  repn(2), repn(2), repn(2),                  # Wr1 Wr2 addr
-                  PartitionSpec(None, axis_names)]            # add_colC
-    if has_sub:
-        # sub_row is per-row (sharded with the field); sub_col feeds the
-        # row-local pass B, whose columns are complete -> replicated.
-        base_specs += [PartitionSpec(axis_names, None), repn(2)]
-    if has_mid:
-        base_specs.append(repn(2))
-    if members is None:
-        args = member_operands(ops)
-        op_specs = base_specs
-    else:
-        per = [member_operands(om) for om in members]
-        args = [jnp.stack(xs) for xs in zip(*per)]
-        op_specs = [PartitionSpec(batch_axis, *tuple(s))
-                    for s in base_specs]
-    in_specs = [spec] + op_specs
-    # check_vma=False: pallas_call's out_shape carries no varying-mesh-
-    # axes annotation, so shard_map's VMA checker cannot type it.
-    mapped = shard_map(body, mesh=mesh, in_specs=tuple(in_specs),
-                       out_specs=spec, check_vma=False)
-
-    if members is None:
-        xla_twin = make_xla_two_phase_T(ops, work)
-    else:
-        twins = [make_xla_two_phase_T(om, work) for om in members]
-
-    def _primal(ell):
-        if batch_axis is not None and ell.shape[0] != n_slice:
-            raise ValueError(
-                f"multi-slice operator expects a leading batch of "
-                f"{n_slice} (one member per {batch_axis!r} slice); got "
-                f"{ell.shape}")
-        return mapped(ell.astype(work), *args)
-
-    @jax.custom_jvp
-    def T(ell):
-        return _primal(ell)
-
-    @T.defjvp
-    def _jvp(primals, tangents):
-        (ell,), (dell,) = primals, tangents
-        dout = jax.jvp(xla_twin_4d, (ell,), (dell,))[1]
-        return _primal(ell), dout
-
-    def xla_twin_4d(ell):
-        if members is not None:
-            # Per-member twins (different operand constants), unrolled
-            # over the small slice count.
-            return jnp.stack([
-                twins[i](ell[i].reshape(R, I, J)).reshape(ops.shapes)
-                for i in range(n_slice)])
-        if batch_axis is not None:
-            return jax.vmap(
-                lambda e: xla_twin(e.reshape(R, I, J)).reshape(ops.shapes)
-            )(ell)
-        return xla_twin(ell.reshape(R, I, J)).reshape(ops.shapes)
-
-    T.input_sharding = NamedSharding(mesh, spec)
-    T.mode = mode
-    T.xla_twin = xla_twin_4d
-    if members is not None:
-        if all(om.baseline_log_w is not None for om in members):
-            T.baseline_log_w = jnp.stack(
-                [cast(om.baseline_log_w) for om in members])
-    elif ops.baseline_log_w is not None:
-        base = cast(ops.baseline_log_w)
-        if batch_axis is not None:
-            # The replicated multi-slice operator consumes a leading
-            # n_slice batch — its warm-start field must match (the
-            # sweep path above already stacks per-member baselines).
-            base = jnp.broadcast_to(base[None], (n_slice,) + base.shape)
-        T.baseline_log_w = base
-    return jax.jit(T)
+__all__ = ["T_ssy_shard_map_factory", "two_phase_shard_map_factory"]
 
 
 def two_phase_shard_map_factory(ops, mesh: Mesh,
@@ -483,8 +47,7 @@ def two_phase_shard_map_factory(ops, mesh: Mesh,
         pmax (LSE shift)  ->  local partial matmul against the factor's
         column block      ->  psum_scatter over that mesh axis
 
-    — two reduce-scatters riding ICI per application, one per sharded
-    grid axis.  Covers every TwoPhaseOperands instance (discrete SSY
+    — two reduce-scatters per application, one per sharded grid axis.  Covers every TwoPhaseOperands instance (discrete SSY
     plain/normalized, continuous factored-quadrature SSY), so the same
     hand-placed collective pattern runs the continuous production path.
     Differentiable (the pmax shifts ride stop_gradient; psum_scatter has
@@ -496,17 +59,14 @@ def two_phase_shard_map_factory(ops, mesh: Mesh,
         raise ValueError(
             f"row axes {(n_r1, n_r2)} not divisible by mesh {(n_dp, n_tp)}")
 
-    if getattr(ops, "pair_c2", None) is not None or getattr(
-            ops, "dense_placeholder", False):
-        # These sets carry a W_c2 placeholder (the real factors live in
-        # pair_c2 / the lazy triples); contracting the placeholder here
-        # would be silent garbage.  Multi-device continuous GCY runs the
-        # GSPMD per-axis chain (parallel/mesh.py) in f64 or the sharded
-        # streamed pair tier in f32.
+    if getattr(ops, "pair_c2", None) is not None:
+        # Pair sets carry a W_c2 placeholder (the real factors live in
+        # pair_c2); contracting the placeholder here would be silent
+        # garbage.  Multi-device continuous GCY runs the GSPMD per-axis
+        # chain (parallel/mesh.py).
         raise ValueError(
             "two_phase_shard_map_factory does not evaluate pair-"
-            "factored or dense=False operand sets; use the GSPMD "
-            "per-axis chain (f64) or streamed_shard_map_factory (f32)")
+            "factored operand sets; use the GSPMD per-axis chain")
     work = dtype or jnp.float32
     cast = lambda a: jnp.asarray(a, work)
     W_r1, W_r2, W_c1, W_c2 = map(cast, (ops.W_r1, ops.W_r2, ops.W_c1,
@@ -617,7 +177,8 @@ def T_ssy_shard_map_factory(model: SSY,
         m_local = jnp.max(lax.stop_gradient(p), axis=0, keepdims=True)
         m = lax.pmax(m_local, axis_name)
         v = jnp.exp(p - m)
-        partial_u = jnp.einsum("lm,mkij->lkij", B_cols, v)
+        partial_u = jnp.einsum("lm,mkij->lkij", B_cols, v,
+                               precision=lax.Precision.HIGHEST)
         u = lax.psum_scatter(partial_u, axis_name, scatter_dimension=0,
                              tiled=True)
         a = m + jnp.log(u)

@@ -3,7 +3,7 @@
 ``solve`` is typically called repeatedly with the same operator closure
 (warm starts, tolerance sweeps, benchmarking).  Naively wrapping the solver
 loop in a fresh ``jax.jit`` on every call would re-trace and re-compile each
-time — on TPU with remote compilation that is tens of seconds per call.
+time — seconds to minutes per call for the large solver loops.
 Solvers instead build their jitted loop once per (operator, static-config)
 pair, keyed weakly on the operator closure so cached executables die with
 the operator; dynamic quantities (initial guess, tolerance, max_iter) are

@@ -37,11 +37,10 @@ __all__ = ["anderson_solver"]
 def _solve_small_spd(A: jnp.ndarray, b: jnp.ndarray) -> jnp.ndarray:
     """Solve A x = b for a small SPD matrix by unrolled Gauss–Jordan.
 
-    ``jnp.linalg.solve`` lowers to an LU decomposition that the TPU backend
-    does not implement for f64; the ridge-regularized Gram system here is
-    tiny (history_size ~ 10) and positive definite, so plain elimination
-    with diagonal pivots in basic arithmetic (accurate in emulated f64 on
-    TPU) is both portable and stable enough.
+    The ridge-regularized Gram system here is tiny (history_size ~ 10) and
+    positive definite, so plain elimination with diagonal pivots in basic
+    arithmetic is both portable and stable enough, and needs no LU
+    decomposition.
     """
     m = A.shape[0]
     M = jnp.concatenate([A, b[:, None]], axis=1)
@@ -89,13 +88,10 @@ def anderson_solver(T: Callable,
     def aa_combination(X, F, fx):
         """Solve the ridge normal equations over the m stored pairs."""
         G = F - X                                   # residuals, (m,)+shape
-        # Pairwise Gram, NOT one (m,)+shape f64 einsum: on TPU the f64
-        # emulation expands each operand into its multiword form, and a
-        # single einsum materializes that expansion for the WHOLE
-        # history — measured: an f32[8, m, <grid>] intermediate (32 GB
-        # at m=10, 25.2M points; HBM is 16 GB).  Upper-triangle dots
-        # keep one vector pair's expansion live at a time (~0.8 GB),
-        # and XLA reuses the buffer across the unrolled m(m+1)/2 dots.
+        # Pairwise Gram over the upper triangle: m(m+1)/2 dots, each
+        # keeping one vector pair live at a time.  Whether one batched
+        # (m,)+shape einsum is faster on the GPU is not measured yet
+        # (ROADMAP Speed item 2).
         rows = [[None] * m for _ in range(m)]
         for i in range(m):
             gi = G[i].astype(gram_dtype)

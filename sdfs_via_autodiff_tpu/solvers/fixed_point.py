@@ -1,6 +1,6 @@
 """Successive approximation and Newton–Kantorovich fixed-point solvers.
 
-TPU-first redesign of reference ``code/solvers.py:19-95``: the reference
+Redesign of reference ``code/solvers.py:19-95``: the reference
 drives the iteration from a host ``while`` loop, paying a dispatch plus a
 device->host error readback every iteration (reference ``solvers.py:34-40``).
 Here the entire solve — operator applications, sup-norm error, iteration
@@ -49,11 +49,9 @@ def _iterate(step: Callable, x0, tol, max_iter, *, verbose=False,
     and on a residual *plateau*: ``stall_iters`` consecutive iterations
     without a relative improvement of at least ``STALL_RTOL`` over the best
     residual seen.  The plateau guard is what makes an unreachable ``tol``
-    safe on TPU: a float32 iteration limit-cycles just above its rounding
-    floor, and without the guard the loop would spin for the full
-    ``max_iter`` (reference default 10^6) — a device while_loop long
-    enough to trip the TPU runtime's watchdog and kill the worker (the
-    round-1 "Newton at scale faults the worker" failure class).  The
+    safe: a float32 iteration limit-cycles just above its rounding floor,
+    and without the guard the loop would spin for the full ``max_iter``
+    (reference default 10^6) as one long device while_loop.  The
     slowest legitimate contractions here improve ~1e-3 per iteration
     (rate ~ beta = 0.999), three orders above STALL_RTOL, so the guard
     cannot fire on a healthy solve.  ``tol`` and ``max_iter`` may be
@@ -99,7 +97,7 @@ def _iterate(step: Callable, x0, tol, max_iter, *, verbose=False,
         # successive approximation that equals the operator residual by
         # construction, but for composite steps (Newton) a degenerate
         # inner solve can return a zero step far from the solution —
-        # observed on TPU: float32 BiCGStab breakdown at ~10^7 points
+        # observed: float32 BiCGStab breakdown at ~10^7 points
         # returned b = 0, the loop saw error 0.0, and "convergence" was
         # reported at an iterate whose true residual was ~1e-2.  Verify
         # and report the actual fixed-point residual instead.
@@ -172,9 +170,8 @@ def newton_solver(T: Callable,
     matvecs in the iterate dtype, recurrence scalars and dot products in
     float64, which survives the 10^7-point f32 grids where vector-dtype
     BiCGStab breaks down to a zero step), "gmres" (jax.scipy), or
-    "dense" (explicit ``jacfwd`` + LU solve; small grids on CPU only — TPU
-    lacks an f64 LU, and the reference measured the dense path to be slower
-    anyway, ``temp_ssy.py:198-226``; ``inner_tol``/``inner_maxiter`` are
+    "dense" (explicit ``jacfwd`` + LU solve; small grids only — the
+    reference measured the dense path to be slower, ``temp_ssy.py:198-226``; ``inner_tol``/``inner_maxiter`` are
     Krylov-only and do not apply there).
 
     Unlike the reference's fixed ``atol=1e-4`` (``solvers.py:55``) the inner
@@ -187,17 +184,14 @@ def newton_solver(T: Callable,
     ``inner_maxiter`` defaults to 50 (well above the ~10-30 Krylov steps
     these operators need) rather than jax.scipy's default of ``10 * N``:
     at multi-million-point grids that default lowers to a ~10^8-trip
-    device while_loop, which reproducibly faults the TPU runtime — the
-    root cause of every "Newton at scale kills the worker" failure in
-    round 1.  Pass ``inner_maxiter=None`` explicitly to restore the
-    unbounded behavior.
+    device while_loop.  Pass ``inner_maxiter=None`` explicitly to restore
+    the unbounded behavior.
 
     ``tangent_T`` (mixed-precision iterative refinement): an optional
-    FAST low-precision twin of ``T`` (e.g. the float32 tiled kernel)
-    whose linearization supplies the inner Krylov matvecs, while the
-    residual ``g(x) = T(x) - x`` — and the safeguard — stay on ``T``.
-    This is the TPU-native accuracy endgame: on an f64 (device-emulated
-    or host) operator, every inner matvec otherwise costs a full
+    FAST low-precision twin of ``T`` (e.g. the same operator built in
+    float32) whose linearization supplies the inner Krylov matvecs, while
+    the residual ``g(x) = T(x) - x`` — and the safeguard — stay on ``T``.
+    On an f64 operator every inner matvec otherwise costs a full
     f64-precision chain application; with the f32 tangent the correction
     solve runs at fast-tier speed and the refinement still converges to
     ``T``'s own precision, contracting per outer step by roughly the

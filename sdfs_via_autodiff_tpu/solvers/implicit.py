@@ -17,9 +17,9 @@ This is capability the reference does not have: its solvers return the
 bare fixed point (``/root/reference/code/solvers.py:154-177``) and any
 parameter gradient would have to unroll the whole iteration history
 through autodiff (unusable at beta ~ 1 iteration counts, and impossible
-through its host-side ``while`` loops).  On TPU the adjoint solve is the
-same sharded contraction chain as the Newton inner loop, so calibration
-gradients inherit every kernel/sharding tier the operators have.
+through its host-side ``while`` loops).  The adjoint solve is the same
+sharded contraction chain as the Newton inner loop, so calibration
+gradients inherit every sharding tier the operators have.
 
 Conventions
 -----------

@@ -1,26 +1,22 @@
 """Matrix-free Krylov inner solvers with mixed-precision reductions.
 
 The Newton–Kantorovich inner solve is a matrix-free Krylov iteration on
-the device iterate (float32 on the TPU fast tier).  ``jax.scipy``'s
+the device iterate (float32 on the fast tier).  ``jax.scipy``'s
 BiCGStab runs its *recurrence scalars* (rho = <r_hat, r>, alpha, omega)
 in the vector dtype; at 10^7-point grids a float32 dot product carries
 O(sqrt(N) * eps) ~ 1e-4 relative noise, and BiCGStab's scalar ratios
 amplify it until rho/omega collapse — the observed f32 "breakdown at
-scale" that returned a zero step on the 25M-point GCY north star
-(``benchmarks/northstar.py`` round-3 note) and forced that case onto
-Anderson acceleration.
+scale" that returned a zero step on a 25M-point GCY grid and forced
+that case onto Anderson acceleration.
 
 This BiCGStab keeps every VECTOR in the iterate dtype (f32 matvecs, f32
-state — the expensive part, and all the HBM) but computes every
-REDUCTION and recurrence scalar in float64.  On TPU, f64 is the
-double-float emulation (~47-bit mantissa, f32 range): scalars and dot
-products of O(1) values are exactly its sweet spot, and the per-
-iteration cost is two f64 tree-reductions against two full operator
-matvecs — noise-floor arithmetic for free.
+state — the expensive part, and all the device memory) but computes
+every REDUCTION and recurrence scalar in float64: the per-iteration cost
+is two f64 tree-reductions against two full operator matvecs —
+noise-floor arithmetic for free.
 
 The loop is one ``lax.while_loop`` (device-resident, bounded — see the
-``newton_solver`` docstring for why unbounded inner loops are a TPU
-watchdog hazard) with explicit breakdown guards: |rho| or |<r_hat, v>|
+``newton_solver`` docstring for why inner loops are bounded) with explicit breakdown guards: |rho| or |<r_hat, v>|
 or <t, t> underflowing stops the iteration and returns the current
 iterate, whose quality the caller (Newton's safeguard + true-residual
 reporting, ``fixed_point.py``) already polices.
@@ -42,7 +38,7 @@ __all__ = ["bicgstab_mixed"]
 
 
 def _dot64(a, b):
-    """<a, b> accumulated in float64 (double-float on TPU)."""
+    """<a, b> accumulated in float64."""
     return jnp.sum(a.astype(jnp.float64) * b.astype(jnp.float64))
 
 
@@ -56,15 +52,13 @@ def bicgstab_mixed(matvec: Callable, b, *, atol=0.0,
     ``(x, info)`` where ``info`` is the number of iterations run (int32;
     diagnostic only, like scipy's).  ``atol`` is the absolute target on
     ||b - A x||_2, evaluated on the recursive residual.  ``maxiter``
-    bounds the device loop (None is rejected — unbounded inner
-    while_loops trip the TPU watchdog; pass an explicit large bound if
-    you really want one).
+    bounds the device loop (None is rejected — pass an explicit large
+    bound if you really want one).
     """
     if maxiter is None:
-        raise ValueError("bicgstab_mixed requires an explicit maxiter "
-                         "(unbounded device loops are a TPU watchdog "
-                         "hazard); jax.scipy.sparse.linalg.bicgstab "
-                         "accepts None if you must")
+        raise ValueError("bicgstab_mixed requires an explicit maxiter; "
+                         "jax.scipy.sparse.linalg.bicgstab accepts None "
+                         "if you must")
     vdtype = jnp.result_type(b)
     shape = b.shape
     flat = lambda v: v.reshape(-1)

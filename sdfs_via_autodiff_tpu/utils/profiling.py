@@ -1,8 +1,8 @@
 """Profiling and timing utilities.
 
 The reference's only instrumentation is wall-clock pairs and ``%%time``
-magics (SURVEY.md §5).  Here: a ``jax.profiler`` trace context for real
-TPU traces, and a timing wrapper emitting the BASELINE metrics
+magics (SURVEY.md §5).  Here: a ``jax.profiler`` trace context for device
+traces, and a timing wrapper emitting the BASELINE metrics
 (time-to-tolerance, iterations, grid-point updates per second).
 """
 

@@ -84,10 +84,9 @@ def test_accurate_passthrough_f64():
 
 
 def test_two_phase_f32_one_application_floor():
-    # Operator-level payoff: the f32 two-phase twin must now sit at the
-    # few-ulp floor vs f64 (it was ~1e-4 with hardware transcendentals on
-    # TPU; on CPU both are accurate, so this guards the software path's
-    # correctness rather than the hardware delta).
+    # Operator-level payoff: the f32 two-phase twin must sit at the
+    # few-ulp floor vs f64 (on the CPU the hardware transcendentals are
+    # accurate too, so this guards the software path's correctness).
     from sdfs_via_autodiff_tpu import SSY, build_grid_ssy
     from sdfs_via_autodiff_tpu.operators.two_phase import (
         make_xla_two_phase_T, two_phase_operands_ssy_continuous)

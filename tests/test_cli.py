@@ -109,8 +109,7 @@ def test_check_degroot_spec(capsys):
 
 
 def test_cli_solve_tauchen_discrete(tmp_path, capsys):
-    # The scale-tier options round-trip through the CLI: tauchen
-    # discretization + explicit engine/kernel flags (xla on CPU).
+    # The tauchen discretization option round-trips through the CLI.
     import json
 
     from sdfs_via_autodiff_tpu.cli import main
@@ -166,9 +165,9 @@ def test_checkpoint_consumers_use_stored_calibration(tmp_path):
 
 
 def test_solve_degroot_rejects_unsupported_flags(capsys):
-    with pytest.raises(SystemExit, match="--kernel"):
+    with pytest.raises(SystemExit, match="--baseline"):
         main(["solve", "ssy", "--shapes", "3,3,3,3", "--spec", "degroot",
-              "--kernel", "tiled"])
+              "--baseline", "loglinear"])
     with pytest.raises(SystemExit, match="--polish"):
         main(["solve", "ssy", "--shapes", "3,3,3,3", "--spec", "degroot",
               "--polish"])

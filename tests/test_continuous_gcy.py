@@ -150,41 +150,3 @@ def test_monte_carlo_log_space(setup, rng):
     np.testing.assert_allclose(
         np.exp(np.asarray(T_mc_log(jnp.log(w)))), np.asarray(T_mc(w)),
         rtol=1e-10)
-
-
-def test_driver_gcy_tiled_pair_kernel_end_to_end(monkeypatch):
-    """wc_ratio_continuous(GCY, kernel='tiled'): the pair-kernel driver
-    branch end to end (coarse additive baseline -> streamed pair kernel
-    -> Newton), with the Pallas tier in interpret mode."""
-    import functools
-
-    from sdfs_via_autodiff_tpu import wc_ratio_continuous
-    from sdfs_via_autodiff_tpu.kernels import tiled_two_phase as ttp
-
-    monkeypatch.setattr(
-        ttp, "make_tiled_T_log_gcy_continuous",
-        functools.partial(ttp.make_tiled_T_log_gcy_continuous,
-                          interpret=True))
-    model = GCY()
-    sol = wc_ratio_continuous(model, (8, 3, 2, 4, 128, 2),
-                              kernel="tiled", baseline="coarse",
-                              space="log", algorithm="newton", tol=2e-4,
-                              quad_degree=5, inner_maxiter=12)
-    assert bool(sol.result.converged)
-    assert sol.w_star.shape == (8, 3, 2, 4, 128, 2)
-    assert bool(jnp.isfinite(sol.w_star).all())
-
-
-def test_default_algorithm_resolution():
-    # algorithm=None resolves per path: SA for the continuous-GCY pair
-    # tier (the pallas primal is ms-scale and SA contracts ~0.98/iter;
-    # Newton's XLA-twin tangent and Anderson's envelope exit are both
-    # recorded non-viable at 18.9M points — NORTHSTAR
-    # gcy_continuous_quadpre_pair), Newton elsewhere.
-    from sdfs_via_autodiff_tpu.drivers import _default_algorithm
-    from sdfs_via_autodiff_tpu import SSY
-
-    assert _default_algorithm(GCY(), "tiled") == "sa"
-    assert _default_algorithm(SSY(), "tiled") == "newton"
-    assert _default_algorithm(GCY(), "xla") == "newton"
-    assert _default_algorithm(SSY(), "xla") == "newton"

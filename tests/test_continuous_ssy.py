@@ -152,24 +152,6 @@ def test_interp_variants_converge_with_grid_refinement():
     assert fine < 0.01
 
 
-def test_fused_driver_algorithms():
-    # Whole-solve Pallas kernels exposed through the driver API
-    # (interpret-mode execution on CPU; `interpret` forwards through
-    # solver_opts to the kernel builders).
-    from sdfs_via_autodiff_tpu import wc_ratio_continuous
-    model = SSY()
-    sol = wc_ratio_continuous(model, (5, 5, 5, 6),
-                              algorithm="fused_anderson", tol=2e-6,
-                              interpret=True)
-    assert sol.converged, sol.result
-    assert float(sol.w_star.min()) > 1
-    sol2 = wc_ratio_continuous(model, (5, 5, 5, 6), algorithm="fused_sa",
-                               tol=2e-6, interpret=True)
-    assert sol2.converged, sol2.result
-    np.testing.assert_allclose(np.asarray(sol.w_star),
-                               np.asarray(sol2.w_star), rtol=1e-3)
-
-
 def test_existence_check_continuous(setup):
     from sdfs_via_autodiff_tpu.utils.spectral import existence_check
     model, grids = setup
@@ -196,9 +178,7 @@ def test_polish_refines_f32_solve():
 
 
 class TestCalibrationSweep:
-    """wc_ratio_sweep: many calibrations, one compiled vmapped program
-    (round 4 — the batched form the multi-slice DCN layout shards
-    one-member-per-slice)."""
+    """wc_ratio_sweep: many calibrations, one compiled vmapped program."""
 
     def test_ssy_sweep_matches_individual_solves(self):
         import dataclasses

@@ -157,12 +157,11 @@ def test_gcy_tauchen_discretization_solves():
 
 
 def test_wide_rouwenhorst_f32_via_normalized_xla_chain():
-    # Round-2 review item #5: the f32 range cap on wide Rouwenhorst GCY
-    # grids was a property of the Kronecker-grouped tiled kernel's joint
-    # column-group shifts, not of the operator — the normalized per-axis
-    # XLA chain converges in f32 on grids far beyond the kron envelope
-    # and tracks the f64 solution.  (The >=10M-point TPU run is the
-    # NORTHSTAR artifact; this is the correctness oracle at CI scale.)
+    # The f32 range cap on wide Rouwenhorst GCY grids is a property of
+    # joint column-group shifts, not of the operator — the normalized
+    # per-axis chain converges in f32 on grids far beyond the Kronecker
+    # envelope and tracks the f64 solution (the correctness oracle at CI
+    # scale).
     from sdfs_via_autodiff_tpu.operators.discrete_gcy import (
         gcy_loglinear_parts)
     m = GCY()

@@ -213,21 +213,21 @@ def test_discrete_polish_refines_f32_solve():
 
 
 def test_discrete_polish_stage_placements():
-    # polish accepts True | "host" | "device" (on the CPU backend the
-    # placements coincide; the "device" option exists for the TPU's f64
-    # emulation) and rejects anything else.
+    # polish is a flag: the float64 stage runs on the default device.
+    # The old placement spellings ("host", "device") are refused.
     import pytest
 
     from sdfs_via_autodiff_tpu import wc_ratio_discrete
     model = SSY()
     shapes = (4, 4, 4, 6)
-    for stage in ("host", "device"):
-        sol = wc_ratio_discrete(model, shapes, algorithm="newton",
-                                tol=1e-9, dtype=jnp.float32, polish=stage)
-        assert sol.converged
-        assert float(sol.result.residual) < 1e-9
-    with pytest.raises(ValueError, match="polish"):
-        wc_ratio_discrete(model, shapes, tol=1e-9, polish="gpu")
+    sol = wc_ratio_discrete(model, shapes, algorithm="newton", tol=1e-9,
+                            dtype=jnp.float32, polish=True)
+    assert sol.converged
+    assert float(sol.result.residual) < 1e-9
+    assert sol.w_star.dtype == jnp.float64
+    for stage in ("host", "device", "gpu"):
+        with pytest.raises(ValueError, match="polish"):
+            wc_ratio_discrete(model, shapes, tol=1e-9, polish=stage)
 
 
 def test_fast_transcendentals_escape_hatch(setup, rng):

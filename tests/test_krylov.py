@@ -1,10 +1,10 @@
 """Mixed-precision BiCGStab (solvers/krylov.py).
 
-The point of the mixed scheme: float32 VECTORS (all the HBM and matvec
+The point of the mixed scheme: float32 VECTORS (all the memory and matvec
 cost) with float64 recurrence scalars and dot products, so the inner
 Newton solve survives grid sizes where vector-dtype BiCGStab's scalar
 ratios drown in f32 reduction noise and collapse to a zero step
-(observed on the 25M-point GCY north star, benchmarks/northstar.py).
+(observed on a 25M-point GCY grid).
 """
 
 import jax
@@ -61,10 +61,10 @@ class TestBicgstabMixed:
         # f64 recurrence scalars must keep the iteration healthy (no
         # rho/omega collapse) all the way to the requested atol.  (The
         # vector-dtype failure this scheme exists for was observed on
-        # real TPU reductions at 25M points — benchmarks/northstar.py;
-        # XLA's CPU reductions are pairwise and too accurate to
-        # reproduce it in CI, so this asserts the mixed solver's own
-        # contract rather than a side-by-side.)
+        # device reductions at 25M points; XLA's CPU reductions are
+        # pairwise and too accurate to reproduce it in CI, so this
+        # asserts the mixed solver's own contract rather than a
+        # side-by-side.)
         n = 1 << 21
         d = np.logspace(0, 3, n).astype(np.float32)
         rng.shuffle(d)

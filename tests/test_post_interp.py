@@ -1,5 +1,5 @@
-"""Node-chain post/loglin-interpolation operator and its Pallas kernel:
-exactness vs the gather oracle, MC parity, autodiff, kernel agreement."""
+"""Node-chain post/loglin-interpolation operator: exactness vs the gather
+oracle, MC parity, autodiff."""
 
 import jax
 import jax.numpy as jnp
@@ -7,8 +7,6 @@ import numpy as np
 import pytest
 
 from sdfs_via_autodiff_tpu import SSY, build_grid_ssy
-from sdfs_via_autodiff_tpu.kernels.post_interp_kernel import (
-    make_post_interp_kernel_T_ssy)
 from sdfs_via_autodiff_tpu.operators.continuous_common import make_gather_T
 from sdfs_via_autodiff_tpu.operators.continuous_ssy import (
     T_ssy_continuous_factory, _log_kappa_ssy, next_state_ssy)
@@ -117,39 +115,6 @@ def test_factory_mc_node_chain_matches_gather(setup, rng):
     T_gather = T_ssy_continuous_factory(model, grids, engine="gather", **kw)
     np.testing.assert_allclose(np.asarray(T_auto(ell)),
                                np.asarray(T_gather(ell)), atol=1e-8, rtol=0)
-
-
-@pytest.mark.parametrize("interp", ["post", "loglin"])
-def test_kernel_matches_oracle_interpret(setup, rng, interp):
-    # Fused Pallas kernel (interpret mode) vs the f64 node chain: f32
-    # single-shift tolerance.
-    model, grids = setup
-    nodes, logw = ssy_quadrature_nodes(4)
-    T64 = make_node_chain_T_ssy(model, grids, nodes, logw, interp=interp)
-    Tk = make_post_interp_kernel_T_ssy(model, grids, quad_degree=4,
-                                       interp=interp, interpret=True)
-    ell = rand_ell(rng)
-    np.testing.assert_allclose(np.asarray(Tk(ell)), np.asarray(T64(ell)),
-                               atol=2e-5, rtol=0)
-
-
-def test_kernel_autodiff_interpret(setup, rng):
-    # Custom JVP through the XLA twin: forward and reverse mode.
-    model, grids = setup
-    nodes, logw = ssy_quadrature_nodes(4)
-    T64 = make_node_chain_T_ssy(model, grids, nodes, logw, interp="post")
-    Tk = make_post_interp_kernel_T_ssy(model, grids, quad_degree=4,
-                                       interp="post", interpret=True)
-    ell = rand_ell(rng)
-    vec = jnp.asarray(rng.standard_normal(SIZES))
-    _, dk = jax.jvp(Tk, (ell,), (vec,))
-    _, d64 = jax.jvp(T64, (ell,), (vec,))
-    np.testing.assert_allclose(np.asarray(dk), np.asarray(d64), atol=2e-5,
-                               rtol=0)
-    gk = jax.grad(lambda e: jnp.sum(Tk(e)))(ell)
-    g64 = jax.grad(lambda e: jnp.sum(T64(e)))(ell)
-    np.testing.assert_allclose(np.asarray(gk), np.asarray(g64), atol=2e-5,
-                               rtol=0)
 
 
 class TestGCYNodeChain:

@@ -1,6 +1,6 @@
 """Multi-device sharding correctness on a virtual 8-device CPU mesh.
 
-The standard way to validate ICI layouts without TPU hardware (SURVEY.md
+The standard way to validate mesh layouts without several cards (SURVEY.md
 §4): compare n-device sharded solves against single-device solves to tight
 tolerance.
 """
@@ -316,114 +316,6 @@ def test_gcy_kron_two_phase_shard_map_matches_single_device(rng):
                                atol=1e-9, rtol=0)
 
 
-@needs_devices
-class TestStreamedShardMap:
-    """The Pallas fast tier composed over the mesh (VERDICT round-2 #2):
-    shard-local streamed kernels + two all-to-all reshards."""
-
-    SHAPES = (8, 8, 8, 16)
-
-    def _mesh(self):
-        return make_mesh(8)
-
-    def test_discrete_plain_matches_single_device(self, rng):
-        from sdfs_via_autodiff_tpu.kernels.streamed_two_phase import (
-            make_streamed_T_log)
-        from sdfs_via_autodiff_tpu.operators.two_phase import (
-            two_phase_operands_ssy)
-        from sdfs_via_autodiff_tpu.parallel.shard_ops import (
-            streamed_shard_map_factory)
-        model = SSY()
-        disc = discretize_ssy(model, self.SHAPES)
-        ops = two_phase_operands_ssy(model, disc)
-        mesh = self._mesh()
-        T_sharded = streamed_shard_map_factory(ops, mesh, interpret=True)
-        assert T_sharded.mode == "fast"
-        T_single = make_streamed_T_log(ops, interpret=True)
-        ell = jnp.asarray(
-            np.log(800.0) + 0.05 * rng.standard_normal(self.SHAPES),
-            jnp.float32)
-        ell_sh = jax.device_put(ell, T_sharded.input_sharding)
-        got = np.asarray(T_sharded(ell_sh))
-        want = np.asarray(T_single(ell))
-        # Per-row / per-column math is identical and reshards only move
-        # data; the only divergence is contraction blocking for the
-        # different strip widths (~1 ulp on a handful of elements).
-        np.testing.assert_allclose(got, want, atol=1e-6)
-
-    def test_continuous_normalized_matches_single_device(self, rng):
-        from sdfs_via_autodiff_tpu.kernels.streamed_two_phase import (
-            make_streamed_T_log)
-        from sdfs_via_autodiff_tpu.operators.two_phase import (
-            two_phase_operands_ssy_continuous)
-        from sdfs_via_autodiff_tpu.parallel.shard_ops import (
-            streamed_shard_map_factory)
-        model = SSY()
-        grids = build_grid_ssy(model, *self.SHAPES)
-        ops = two_phase_operands_ssy_continuous(model, grids, 3,
-                                                baseline="loglinear")
-        assert ops.c2_batched and ops.has_sub
-        mesh = self._mesh()
-        T_sharded = streamed_shard_map_factory(ops, mesh, interpret=True)
-        assert T_sharded.mode == "lse"
-        T_single = make_streamed_T_log(ops, interpret=True)
-        ell = jnp.asarray(T_single.baseline_log_w, jnp.float32) + \
-            jnp.asarray(0.02 * rng.standard_normal(self.SHAPES), jnp.float32)
-        ell_sh = jax.device_put(ell, T_sharded.input_sharding)
-        # Batched-c2 sets use a joint per-row shift over the pass-C
-        # column block, whose width differs between the single-device
-        # and per-shard kernels — with the linear-carry row phase that
-        # shift's rounding reaches the output, so agreement is a few
-        # ulp rather than bit-exact (shared-c2 sets stay bit-equal:
-        # their shift arrays are per-element, block-independent).
-        np.testing.assert_allclose(np.asarray(T_sharded(ell_sh)),
-                                   np.asarray(T_single(ell)), atol=5e-6)
-
-    def test_discrete_normalized_conjugated_matches_single_device(self, rng):
-        # Batched-c1 normalized operands enter the sharded streamed tier
-        # through the conjugated-shared form (mid_col operand).
-        from sdfs_via_autodiff_tpu.kernels.streamed_two_phase import (
-            make_streamed_T_log)
-        from sdfs_via_autodiff_tpu.operators.two_phase import (
-            two_phase_operands_ssy)
-        from sdfs_via_autodiff_tpu.parallel.shard_ops import (
-            streamed_shard_map_factory)
-        model = SSY()
-        disc = discretize_ssy(model, self.SHAPES)
-        ops = two_phase_operands_ssy(model, disc, baseline="loglinear")
-        assert ops.c1_batched
-        mesh = self._mesh()
-        T_sharded = streamed_shard_map_factory(ops, mesh, interpret=True)
-        assert T_sharded.mode == "lse"
-        T_single = make_streamed_T_log(ops, interpret=True)
-        ell = jnp.asarray(T_single.baseline_log_w, jnp.float32) + \
-            jnp.asarray(0.02 * rng.standard_normal(self.SHAPES), jnp.float32)
-        ell_sh = jax.device_put(ell, T_sharded.input_sharding)
-        np.testing.assert_allclose(np.asarray(T_sharded(ell_sh)),
-                                   np.asarray(T_single(ell)), atol=1e-6)
-
-    def test_newton_solve_through_sharded_streamed(self):
-        from sdfs_via_autodiff_tpu.operators.two_phase import (
-            two_phase_operands_ssy)
-        from sdfs_via_autodiff_tpu.parallel.shard_ops import (
-            streamed_shard_map_factory)
-        model = SSY()
-        disc = discretize_ssy(model, self.SHAPES)
-        ops = two_phase_operands_ssy(model, disc)
-        T = streamed_shard_map_factory(ops, self._mesh(), interpret=True)
-        x0 = jax.device_put(
-            jnp.full(self.SHAPES, jnp.log(800.0), jnp.float32),
-            T.input_sharding)
-        res = solve(T, x0, method="newton", tol=2e-5)
-        assert bool(res.converged)
-        ref = solve(T_ssy_factory(model, disc, space="log"),
-                    jnp.full(self.SHAPES, jnp.log(800.0)), method="newton",
-                    tol=1e-11)
-        np.testing.assert_allclose(np.asarray(res.x, np.float64),
-                                   np.asarray(ref.x), atol=2e-4)
-
-
-
 def _max_allgather_elems(hlo_txt: str) -> int:
     """Largest element count produced by any all-gather in compiled HLO
     (0 if none).  Small gathers (Anderson Gram rows, per-row scale
@@ -511,150 +403,6 @@ class TestShardingPreservedInHLO:
 
 
 @needs_devices
-class TestTwoSliceDCN:
-    """Multi-slice (DCN) layout (round-4 VERDICT item 8): a 2x4 mesh
-    whose outer 'slice' axis models the slow inter-slice network.  The
-    realistic multi-slice deployment of a fixed-point solver is a
-    parameter sweep — one independent member per slice, with the
-    streamed Pallas tier's row/column sharding riding ICI *within* each
-    slice — so per-iteration collectives must name only the intra-slice
-    axis.  Asserted both numerically (bit-equal per member) and against
-    compiled-HLO replica groups (no group spans two slices)."""
-
-    SHAPES = (8, 8, 8, 16)
-
-    @pytest.fixture(scope="class")
-    def two_slice(self):
-        from jax.sharding import Mesh
-
-        from sdfs_via_autodiff_tpu.operators.two_phase import (
-            two_phase_operands_ssy)
-        from sdfs_via_autodiff_tpu.parallel.shard_ops import (
-            streamed_shard_map_factory)
-        model = SSY()
-        ops = two_phase_operands_ssy(model, discretize_ssy(model,
-                                                           self.SHAPES))
-        mesh = Mesh(np.array(jax.devices()[:8]).reshape(2, 4),
-                    ("slice", "tp"))
-        T_ms = streamed_shard_map_factory(ops, mesh, axis_names=("tp",),
-                                          batch_axis="slice",
-                                          interpret=True)
-        return ops, mesh, T_ms
-
-    def test_members_bit_equal_single_device(self, two_slice):
-        from sdfs_via_autodiff_tpu.kernels.streamed_two_phase import (
-            make_streamed_T_log)
-        ops, _, T_ms = two_slice
-        T_1d = make_streamed_T_log(ops, interpret=True)
-        x0 = jnp.full(self.SHAPES, jnp.log(800.0), jnp.float32)
-        batch = jnp.stack([x0, x0 + 0.01])
-        out = np.asarray(T_ms(jax.device_put(batch, T_ms.input_sharding)))
-        np.testing.assert_array_equal(out[0], np.asarray(T_1d(x0)))
-        np.testing.assert_array_equal(out[1], np.asarray(T_1d(x0 + 0.01)))
-
-    def test_no_collective_crosses_the_slice_axis(self, two_slice):
-        import re
-        _, mesh, T_ms = two_slice
-        batch = jnp.zeros((2,) + self.SHAPES, jnp.float32)
-        b_sh = jax.device_put(batch, T_ms.input_sharding)
-        txt = jax.jit(T_ms).lower(b_sh).compile().as_text()
-        n_tp = mesh.shape["tp"]
-        seen = 0
-        for line in txt.splitlines():
-            if "replica_groups" not in line:
-                continue
-            m = re.search(r"replica_groups=\{(\{.*?\})\}", line)
-            if not m:
-                continue
-            seen += 1
-            for grp in re.findall(r"\{([0-9,]+)\}", m.group(1)):
-                ids = [int(v) for v in grp.split(",")]
-                slices = {d // n_tp for d in ids}
-                assert len(slices) == 1, (
-                    f"collective group {ids} spans slices {slices} "
-                    f"(DCN crossing): {line[:160]}")
-        assert seen >= 2, "no grouped collectives found; program not partitioned"
-        # The heavy reshards exist and are intra-slice by the check above.
-        assert "all-to-all" in txt
-
-    def test_batch_size_must_match_slices(self, two_slice):
-        _, _, T_ms = two_slice
-        with pytest.raises(ValueError, match="one member per"):
-            T_ms(jnp.zeros((3,) + self.SHAPES, jnp.float32))
-
-
-@needs_devices
-def test_sharded_pair_configuration_matches_single_device():
-    """Continuous-GCY pair operand sets over the mesh: per-shard pass B
-    (deferred c1) + per-shard pair pass C with P_z sharded over its
-    current-h_z axis — bit-equal to the single-device pair kernel
-    (block-local LSE shifts, like the deferred configuration)."""
-    from sdfs_via_autodiff_tpu import GCY, build_grid_gcy
-    from sdfs_via_autodiff_tpu.kernels.streamed_two_phase import (
-        make_streamed_T_log)
-    from sdfs_via_autodiff_tpu.operators.two_phase import (
-        two_phase_operands_gcy_continuous)
-    from sdfs_via_autodiff_tpu.parallel.shard_ops import (
-        streamed_shard_map_factory)
-    model = GCY()
-    grids = build_grid_gcy(model, 8, 8, 8, 2, 128, 2)
-    ops = two_phase_operands_gcy_continuous(model, grids, degree=5,
-                                            baseline="loglinear")
-    mesh = make_mesh(8)
-    T_sh = streamed_shard_map_factory(ops, mesh, interpret=True)
-    T_1d = make_streamed_T_log(ops, interpret=True)
-    x0 = (jnp.asarray(ops.baseline_log_w, jnp.float32) + 0.03
-          ).reshape(ops.shapes)
-    got = np.asarray(T_sh(jax.device_put(x0, T_sh.input_sharding)))
-    np.testing.assert_array_equal(got, np.asarray(T_1d(x0)))
-
-
-@needs_devices
-def test_per_slice_operand_sweep_matches_single_device():
-    """Stacked per-slice operand sets over a two-slice mesh (a
-    calibration sweep on the Pallas fast tier): each slice computes with
-    its own calibration's factors, bit-equal per member to the
-    single-device kernels.  theta/beta are compiled into the kernels,
-    so members must share them (gamma/psi sweeps belong on the XLA
-    tier, drivers.wc_ratio_sweep)."""
-    import dataclasses
-
-    from jax.sharding import Mesh
-
-    from sdfs_via_autodiff_tpu.kernels.streamed_two_phase import (
-        make_streamed_T_log)
-    from sdfs_via_autodiff_tpu.operators.two_phase import (
-        two_phase_operands_ssy)
-    from sdfs_via_autodiff_tpu.parallel.shard_ops import (
-        streamed_shard_map_factory)
-    shapes = (8, 8, 8, 16)
-    m0 = SSY()
-    m1 = dataclasses.replace(SSY(), rho_z=0.99)
-    ops0 = two_phase_operands_ssy(m0, discretize_ssy(m0, shapes))
-    ops1 = two_phase_operands_ssy(m1, discretize_ssy(m1, shapes))
-    mesh = Mesh(np.array(jax.devices()[:8]).reshape(2, 4),
-                ("slice", "tp"))
-    T_sw = streamed_shard_map_factory([ops0, ops1], mesh,
-                                      axis_names=("tp",),
-                                      batch_axis="slice", interpret=True)
-    x0 = jnp.full(shapes, jnp.log(800.0), jnp.float32)
-    batch = jnp.stack([x0, x0 + 0.01])
-    out = np.asarray(T_sw(jax.device_put(batch, T_sw.input_sharding)))
-    np.testing.assert_array_equal(
-        out[0], np.asarray(make_streamed_T_log(ops0, interpret=True)(x0)))
-    np.testing.assert_array_equal(
-        out[1], np.asarray(make_streamed_T_log(ops1, interpret=True)(
-            x0 + 0.01)))
-    # theta is baked into the kernels: gamma sweeps are rejected.
-    mg = dataclasses.replace(SSY(), gamma=7.0)
-    opsg = two_phase_operands_ssy(mg, discretize_ssy(mg, shapes))
-    with pytest.raises(ValueError, match="share theta"):
-        streamed_shard_map_factory([ops0, opsg], mesh,
-                                   axis_names=("tp",),
-                                   batch_axis="slice", interpret=True)
-
-
-@needs_devices
 def test_implicit_gradient_on_sharded_iterate():
     """Calibration gradients ride the GSPMD tier: implicit_fixed_point
     started from a mesh-sharded iterate (the solver loop keeps it sharded,
@@ -709,32 +457,3 @@ def test_degroot_sharded_solve_matches_single_device():
     assert bool(res_sharded.converged)
     np.testing.assert_allclose(np.asarray(res_sharded.x),
                                np.asarray(res_single.x), atol=1e-12)
-
-
-@needs_devices
-def test_replicated_multislice_baseline_and_axis_validation():
-    # The replicated multi-slice operator must expose a warm-start field
-    # with the leading n_slice batch its own __call__ expects, and a
-    # mesh with no intra-slice axis must be rejected clearly.
-    from jax.sharding import Mesh
-
-    from sdfs_via_autodiff_tpu.operators.two_phase import (
-        two_phase_operands_ssy)
-    from sdfs_via_autodiff_tpu.parallel.shard_ops import (
-        streamed_shard_map_factory)
-
-    model = SSY()
-    ops = two_phase_operands_ssy(model, discretize_ssy(model, (8, 8, 8, 16)),
-                                 baseline="loglinear")
-    mesh = Mesh(np.array(jax.devices()[:8]).reshape(2, 4), ("slice", "tp"))
-    T_ms = streamed_shard_map_factory(ops, mesh, axis_names=("tp",),
-                                      batch_axis="slice", interpret=True)
-    base = T_ms.baseline_log_w
-    assert base.shape == (2, 8, 8, 8, 16)
-    out = T_ms(jax.device_put(base, T_ms.input_sharding))   # must not raise
-    assert out.shape == base.shape
-
-    with pytest.raises(ValueError, match="intra-slice"):
-        streamed_shard_map_factory(
-            ops, Mesh(np.array(jax.devices()[:2]), ("dcn",)),
-            batch_axis="dcn", interpret=True)

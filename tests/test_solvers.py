@@ -156,7 +156,7 @@ def test_mesh_validation_errors():
 def test_stall_guard_stops_limit_cycle():
     # T(x) = 1 - x limit-cycles between 0 and 1: the residual never
     # improves, and without the plateau guard the loop would spin for the
-    # full max_iter (the round-1 TPU watchdog failure class).
+    # full max_iter as one long device loop.
     import jax.numpy as jnp
 
     from sdfs_via_autodiff_tpu.solvers.fixed_point import (STALL_ITERS,
@@ -184,8 +184,8 @@ def test_newton_zero_step_is_not_convergence():
     # makes the zero vector an acceptable Krylov solution) collapses the
     # Newton step to zero far from the fixed point.  The result must
     # report the TRUE operator residual and converged=False — observed
-    # live on TPU where float32 BiCGStab breakdown at ~10^7 points
-    # faked residual 0.0 at a point with true residual ~1e-2.
+    # where float32 BiCGStab breakdown at ~10^7 points faked residual
+    # 0.0 at a point with true residual ~1e-2.
     from sdfs_via_autodiff_tpu.solvers.fixed_point import newton_solver
     A = jnp.asarray(np.diag([0.5, 0.4, 0.3]))
     b = jnp.ones(3)
